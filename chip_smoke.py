@@ -10,24 +10,34 @@ where it stopped:
 
   0. device: the card's name, the device count, and the card's name and
      power limit as ``nvidia-smi`` reports them;
-  1. build: the kernels' one ``nvcc`` call (seconds, and the ``-Xptxas -v``
-     lines: registers and spills of each kernel);
-  2. each kernel against its plain PyTorch twin at the main path's shapes
-     (K1 voxel scatter, K2 local correlation), with the tolerance stated;
+  1. build: the kernels' ``nvcc`` calls, one per source, all started
+     together (seconds, and the ``-Xptxas -v`` lines: registers and spills
+     of each kernel);
+  2. each kernel against its plain PyTorch twin at the main paths' shapes
+     (K1 voxel scatter, K2 local correlation, K3 fused conv chain + pool at
+     the three 720×1280 pyramid levels in float32 and at level 2 in bf16,
+     and on a small concat chain; K4 coarse head at the three 12×20 levels
+     for B=1 and 2, groups 5 and 1), with the tolerance stated;
   3. end to end: the port's HREM eval CLI at 720×1280 on the seed-99
      synthetic split with the golden checkpoint, on the host-voxelize
-     path, the device-voxelize path and the batched device path; the
-     golden AEE, the agreement of the three paths, the kernels' launch
-     counts on that run, and a small forward on the card against the
-     same forward on the CPU;
+     path, the device-voxelize path and the batched device path (the main
+     path of K1 and K2), then with ``--fast_head --fast_pyramid`` (the
+     main path of K3 and K4), each path's launch counts set to 0 just
+     before it and read just after; the golden AEE, the agreement of the
+     paths, and a small forward on the card against the same forward on
+     the CPU in the standard and the fused modes;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
-     twin and the library yardstick; one 720×1280 B=1 forward; one whole
-     device-voxelize eval sample.
+     twin, the library yardstick and, for K3 and K4, the port's standard
+     path for the same work; one 720×1280 B=1 forward in the standard and
+     in the fused modes; one whole device-voxelize eval sample.
 
-Then one JSON line of every ported kernel (``ms`` is device time,
-``wrapper_ms`` the time per wrapper call back to back), and as the last line
+Then one JSON line of every ported kernel (``ms`` is device time; for K3
+and K4 with the L2 cache flushed before each call, as a forward leaves
+their weights, and ``warm_ms`` without the flush; ``wrapper_ms`` the time
+per wrapper call back to back; ``standard_ms`` the device time, L2
+flushed, of the standard path that K3 or K4 replaces), and as the last line
 ``{"ok": true, "device": {...}}``.  Any fault exits non-zero without the
 ``ok`` line, as does a machine without CUDA.  Synthetic data goes to a
 temporary directory outside the repository.  Parity phases run float32
@@ -58,6 +68,19 @@ PEAK_FP32_FLOP_PER_S = 67e12
 H, W, BINS = 720, 1280, 5
 K1_TOL_REL = 1e-5  # of the largest cell: atomics sum in no fixed order
 K2_TOL = 1e-5
+# relative to max(1, largest |twin|): float32 differs in summation order
+# only; in bf16 both sides round the same operands, but an intermediate that
+# differs in its last float32 bit can round to the neighbouring bf16 value
+K3_TOL = {"float32": 2e-5, "bfloat16": 5e-3}
+K4_TOL = 1e-5
+# EEMFlow's pyramid levels at 720x1280 (padded 768x1280), per frame:
+# (input [C, H, W], conv widths, pool, emit_full)
+K3_LEVELS = (
+    ((16, 384, 640), (16,), 32, True),
+    ((32, 192, 320), (32, 32), 16, True),
+    ((64, 96, 160), (64, 64), 8, False),
+)
+HEAD_CHANNELS = (16, 32, 64)
 GOLDEN_TOL = 0.01
 PATH_TOL = 1e-5
 FORWARD_TOL = 1e-4
@@ -135,6 +158,20 @@ def queued_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_queued_ms(fn, reps: int, device) -> float:
+    """Device milliseconds of ``fn`` with the 50 MB L2 cache flushed before
+    each call, as a forward leaves it for the coarse stage's weights:
+    queued (flush, fn) pairs less queued flushes alone."""
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    flush = buf.zero_
+
+    def both():
+        flush()
+        fn()
+
+    return queued_ms(both, reps) - queued_ms(flush, reps)
+
+
 def make_hrem_fixture(base: str, seed: int = 99, n_events: int = 30000) -> str:
     """Deterministic synthetic HREM test split: one sequence, two samples,
     at protocol resolution (1280×720) — the same generator, draw for draw,
@@ -175,6 +212,77 @@ def k1_batch(rng, n_valid, N: int = 1 << 18, dt_zero=()):
     return ev, np.asarray(n_valid, np.int32)
 
 
+def conv_params(rng, cins, couts, device):
+    """OIHW weights at a He-like scale (activations stay O(1) down a chain)
+    and biases, float32 on ``device``."""
+    ws, bs = [], []
+    for cin, cout in zip(cins, couts):
+        w = rng.standard_normal((cout, cin, 3, 3)) * np.sqrt(2.0 / (9 * cin))
+        ws.append(torch.from_numpy(w.astype(np.float32)).to(device))
+        bs.append(torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32)).to(device))
+    return ws, bs
+
+
+def head_params(rng, groups, device, k=53):
+    """Random EEMFlow coarse-stage parameters by the port's state-dict names."""
+    from eemflow_tpu_torch.ops.coarse_head import conv_names
+
+    widths = ((16, None), (100, k + 16), (100, 100), (100, 100), (100, 100), (64, 100), (32, 64), (2, 32))
+    params = {}
+    for lvl, c in zip((1, 2, 3), HEAD_CHANNELS):
+        for i, (name, (cout, cin)) in enumerate(zip(conv_names(lvl), widths)):
+            cin = c if cin is None else cin
+            g = groups if i in (2, 3, 4) else 1
+            ws, bs = conv_params(rng, (cin // g,), (cout,), device)
+            params[f"{name}.weight"] = ws[0]
+            params[f"{name}.bias"] = bs[0]
+    params["out_conv.weight"] = torch.from_numpy(rng.standard_normal((2, 6, 1, 1)).astype(np.float32)).to(device)
+    params["out_conv.bias"] = torch.from_numpy(rng.standard_normal(2).astype(np.float32)).to(device)
+    return params
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor):
+    """(max |Δ|, the scale max(1, largest |ref|) a relative tolerance uses)."""
+    return float((got - ref).abs().max()), max(1.0, float(ref.abs().max()))
+
+
+def k3_flops_bytes(B, cin, h, w, widths, emit_full, pool):
+    """Operations and bytes one K3 call must do and move: 2 per
+    multiply-add; the input read once, the weights read once, the full
+    output (if asked) and the pooled output written once."""
+    flops = 0
+    nbytes = B * cin * h * w * 4
+    c = cin
+    for f in widths:
+        flops += 2 * B * h * w * f * c * 9
+        nbytes += (f * c * 9 + f) * 4
+        c = f
+    if emit_full:
+        nbytes += B * c * h * w * 4
+    nbytes += B * c * (h // pool) * (w // pool) * 4
+    return flops, nbytes
+
+
+def k4_flops_bytes(B, h, w, packed, k):
+    """Operations and bytes of one K4 call: the correlations, the rconvs,
+    the decoders (grouped convs at their grouped cost) and the 1x1 fuse;
+    the features and weights read once, the flow written once."""
+    hw = h * w
+    flops = 0
+    nbytes = 2 * B * hw * sum(HEAD_CHANNELS) * 4 + B * hw * 2 * 4
+    for lvl, c in enumerate(HEAD_CHANNELS):
+        flops += 2 * B * hw * k * c
+        cin = c
+        for i, ((cout, _, g, _), (wt, bs)) in enumerate(zip(packed["meta"], packed["levels"][lvl])):
+            cin = k + packed["meta"][0][0] if i == 1 else cin
+            flops += 2 * B * hw * cout * (cin // g) * 9
+            nbytes += (cout * (cin // g) * 9 + cout) * 4
+            cin = cout
+    flops += 2 * B * hw * 2 * 6
+    nbytes += (12 + 2) * 4
+    return flops, nbytes
+
+
 def phase_device(device: torch.device) -> dict:
     phase("0 device")
     name = torch.cuda.get_device_name(0)
@@ -200,7 +308,8 @@ def phase_build() -> None:
     build.load()
     lib = os.path.relpath(build.library_path(), REPO)
     if build.build_log:
-        say(f"built {lib} by one nvcc call in {build.build_seconds:.1f} s "
+        say(f"built {lib} from {len(build.SOURCES)} sources ({', '.join(build.SOURCES)}) by one "
+            f"nvcc per source, all at once, and one link in {build.build_seconds:.1f} s "
             f"(load {time.perf_counter() - t0:.1f} s)")
     else:
         say(f"reused {lib}, built earlier from the same sources")
@@ -241,7 +350,75 @@ def phase_parity(device: torch.device) -> dict:
         say(f"K2 local_corr {list(shape)} K=53: max|Δ| {err:.3e} (tolerance {K2_TOL:g})")
         require(tuple(got.shape) == shape[:3] + (53,) and err <= K2_TOL,
                 f"K2 disagrees with its twin at {shape}")
-    return {"voxel_scatter": k1_err, "local_corr": k2_err}
+    k3_err = phase_parity_k3(device, rng)
+    k4_err = phase_parity_k4(device, rng)
+    return {"voxel_scatter": k1_err, "local_corr": k2_err, "fused_convs_pool": k3_err,
+            "coarse_head": k4_err}
+
+
+def phase_parity_k3(device: torch.device, rng) -> float:
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+
+    worst = 0.0
+    cases = [(lvl, torch.float32, 2) for lvl in range(3)] + [(1, torch.bfloat16, 2)]
+    for lvl, dtype, B in cases:
+        (cin, h, w), widths, pool, emit_full = K3_LEVELS[lvl]
+        x = torch.from_numpy(rng.standard_normal((B, cin, h, w)).astype(np.float32)).to(device)
+        ws, bs = conv_params(rng, (cin,) + widths[:-1], widths, device)
+        full, pooled = k3.fused_convs(x, ws, bs, pool, dtype, emit_full)
+        ref_full, ref_pooled = k3.plain(x, ws, bs, pool, dtype, emit_full)
+        torch.cuda.synchronize()
+        tol = K3_TOL[str(dtype).split(".")[1]]
+        require((full is None) != emit_full and tuple(pooled.shape) == (B, widths[-1], h // pool, w // pool),
+                f"K3 level {lvl + 1}: wrong outputs")
+        for what, got, ref in (("full", full, ref_full), ("pooled", pooled, ref_pooled)):
+            if got is None:
+                continue
+            err, scale = rel_err(got, ref)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            say(f"K3 fused_convs_pool level {lvl + 1} [{B},{cin},{h},{w}] convs {list(widths)} "
+                f"pool {pool} {str(dtype)[6:]}: {what} max|Δ| {err:.3e} "
+                f"(tolerance {tol:g}·{scale:.2f} = {tol * scale:.3e})")
+            require(err <= tol * scale, f"K3 disagrees with its twin at level {lvl + 1} ({what}, {dtype})")
+    # a concat chain (the EEMFlow+ FlowEstimatorDense pattern), no pool, ragged
+    x = torch.from_numpy(rng.standard_normal((2, 16, 37, 45)).astype(np.float32)).to(device)
+    ws, bs = conv_params(rng, (16, 24, 32), (8, 8, 3), device)
+    flags = dict(relus=(True, True, False), concat=(True, True, False))
+    got, _ = k3.fused_convs(x, ws, bs, None, **flags)
+    ref, _ = k3.plain(x, ws, bs, None, **flags)
+    torch.cuda.synchronize()
+    err, scale = rel_err(got, ref)
+    worst = max(worst, err)
+    say(f"K3 concat chain [2,16,37,45] convs [8,8,3] no pool: max|Δ| {err:.3e} "
+        f"(tolerance {K3_TOL['float32']:g}·{scale:.2f})")
+    require(err <= K3_TOL["float32"] * scale, "K3 disagrees with its twin on the concat chain")
+    return worst
+
+
+def phase_parity_k4(device: torch.device, rng) -> float:
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+    from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
+
+    worst = 0.0
+    for groups in (5, 1):
+        weights = HeadWeights(head_params(rng, groups, device), groups)
+        for B in (1, 2):
+            f1, f2 = (
+                [torch.from_numpy(rng.standard_normal((B, 12, 20, c)).astype(np.float32)).to(device)
+                 for c in HEAD_CHANNELS]
+                for _ in range(2)
+            )
+            got = coarse_head(f1, f2, weights, groups, INDEX_53, 4)
+            ref = coarse_head(f1, f2, weights, groups, INDEX_53, 4, impl="plain")
+            torch.cuda.synchronize()
+            err, scale = rel_err(got, ref)
+            worst = max(worst, err)
+            say(f"K4 coarse_head B={B} 12x20 C=16/32/64 groups {groups}: max|Δ| {err:.3e}, "
+                f"largest |flow| {float(ref.abs().max()):.3f} (tolerance {K4_TOL:g}·{scale:.2f})")
+            require(tuple(got.shape) == (B, 12, 20, 2) and err <= K4_TOL * scale,
+                    f"K4 disagrees with its twin (B={B}, groups {groups})")
+    return worst
 
 
 def phase_end_to_end(device: torch.device, tmp: str) -> dict:
@@ -254,50 +431,65 @@ def phase_end_to_end(device: torch.device, tmp: str) -> dict:
     with open(GOLDEN_JSON) as f:
         golden = json.load(f)
     root = make_hrem_fixture(tmp, seed=golden["fixture_seed"])
-    runs = (
-        ("host voxelize", []),
-        ("device voxelize", ["--device_voxelize"]),
-        ("device voxelize, eval_batch 2", ["--device_voxelize", "--eval_batch", "2"]),
+    # each main path: (label, its CLI runs, the kernels it must launch)
+    paths = (
+        ("standard", (
+            ("host voxelize", []),
+            ("device voxelize", ["--device_voxelize"]),
+            ("device voxelize, eval_batch 2", ["--device_voxelize", "--eval_batch", "2"]),
+        ), ("voxel_scatter", "local_corr")),
+        ("fused", (
+            ("fused modes (--fast_head --fast_pyramid)", ["--fast_head", "--fast_pyramid"]),
+        ), ("fused_convs_pool", "coarse_head")),
     )
     aee = {}
-    reset_launch_counts()
-    for label, extra in runs:
-        before = dict(launch_counts)
-        t0 = time.perf_counter()
-        res = test_hrem([
-            "-model", "eemflow", "-int", "dt1", "--data_root", root,
-            "--checkpoint", GOLDEN_CKPT, "--save_dir", os.path.join(tmp, "out"),
-            "--save_csv", "--device", str(device), *extra,
-        ])
-        aee[label] = res["mean"]["AEE"]
-        delta = {k: launch_counts[k] - before[k] for k in launch_counts}
-        say(f"{label}: AEE {aee[label]:.7f} in {time.perf_counter() - t0:.1f} s; launches {delta}")
-    launches = dict(launch_counts)
-    say(f"launches on the main path: {launches}")
+    launches = {}
+    for path, runs, kernels in paths:
+        reset_launch_counts()
+        for label, extra in runs:
+            before = dict(launch_counts)
+            t0 = time.perf_counter()
+            res = test_hrem([
+                "-model", "eemflow", "-int", "dt1", "--data_root", root,
+                "--checkpoint", GOLDEN_CKPT, "--save_dir", os.path.join(tmp, "out"),
+                "--save_csv", "--device", str(device), *extra,
+            ])
+            aee[label] = res["mean"]["AEE"]
+            delta = {k: launch_counts[k] - before[k] for k in launch_counts}
+            say(f"{label}: AEE {aee[label]:.7f} in {time.perf_counter() - t0:.1f} s; launches {delta}")
+        counts = dict(launch_counts)
+        say(f"launches on the {path} path: {counts}")
+        for k in kernels:
+            require(counts[k] > 0, f"kernel {k} was not launched on the {path} path")
+            launches[k] = counts[k]
+    # two samples, each one forward of two frames: K3 three times a frame, K4 once a forward
+    require(launches["fused_convs_pool"] == 12 and launches["coarse_head"] == 2,
+            "the fused path did not run K3 three times a frame and K4 once a forward")
     host = aee["host voxelize"]
-    say(f"golden AEE {golden['aee']:.7f}; host path |Δ| {abs(host - golden['aee']):.3e} "
-        f"(tolerance {GOLDEN_TOL:g})")
+    say(f"golden AEE {golden['aee']:.7f}; host path |Δ| {abs(host - golden['aee']):.3e}, "
+        f"fused path |Δ| {abs(aee[paths[1][1][0][0]] - golden['aee']):.3e} (tolerance {GOLDEN_TOL:g})")
     require(abs(host - golden["aee"]) < GOLDEN_TOL, "golden AEE drifted")
     for label, v in aee.items():
         say(f"{label} vs host path: |Δ| {abs(v - host):.3e} (tolerance {PATH_TOL:g})")
-        require(abs(v - host) < PATH_TOL, f"{label} AEE differs from the host path")
-    for k, n in launches.items():
-        require(n > 0, f"kernel {k} was not launched on the main path")
+        require(abs(v - host) < PATH_TOL and abs(v - golden["aee"]) < GOLDEN_TOL,
+                f"{label} AEE differs from the host path or the golden value")
 
     # the whole forward on the card (kernels) against the CPU (twins)
-    model = get_eval_model("eemflow")
-    model.load_state_dict(to_state_dict(load_torch_checkpoint(GOLDEN_CKPT)))
+    sd = to_state_dict(load_torch_checkpoint(GOLDEN_CKPT))
     rng = np.random.default_rng(1)
     ev1, ev2 = (rng.standard_normal((1, 96, 128, BINS)).astype(np.float32) for _ in range(2))
-    with torch.inference_mode():
-        _, ref = model(torch.from_numpy(ev1), torch.from_numpy(ev2))
-        model.to(device)
-        _, got = model(torch.from_numpy(ev1).to(device), torch.from_numpy(ev2).to(device))
-    err = float((got[-1].cpu() - ref[-1]).abs().max())
-    say(f"forward 96x128 card vs CPU: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g}), "
-        f"largest flow {float(ref[-1].abs().max()):.3f}")
-    require(bool(torch.isfinite(got[-1]).all()) and err <= FORWARD_TOL,
-            "forward on the card disagrees with the CPU")
+    for label, kw in (("standard", {}), ("fused", dict(fast_head=True, fast_pyramid=True))):
+        model = get_eval_model("eemflow", **kw)
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            _, ref = model(torch.from_numpy(ev1), torch.from_numpy(ev2))
+            model.to(device)
+            _, got = model(torch.from_numpy(ev1).to(device), torch.from_numpy(ev2).to(device))
+        err = float((got[-1].cpu() - ref[-1]).abs().max())
+        say(f"forward 96x128 {label} card vs CPU: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g}), "
+            f"largest flow {float(ref[-1].abs().max()):.3f}")
+        require(bool(torch.isfinite(got[-1]).all()) and err <= FORWARD_TOL,
+                f"{label} forward on the card disagrees with the CPU")
     return launches
 
 
@@ -364,21 +556,33 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> l
         f"to back; bound {k2_bound:.6f} ms ({k2_by}: {k2_bytes} B, {k2_flops} FLOP); "
         f"twin {k2_plain:.4f} ms (back to back); no single PyTorch call computes it")
 
+    sd = to_state_dict(load_torch_checkpoint(GOLDEN_CKPT))
     model = get_eval_model("eemflow")
-    model.load_state_dict(to_state_dict(load_torch_checkpoint(GOLDEN_CKPT)))
+    model.load_state_dict(sd)
     model.to(device)
     x1, x2 = (torch.randn(1, H, W, BINS, device=device) for _ in range(2))
+    k3_row, k4_row = times_k3_k4(device, model, x1, x2, errs, launches)
 
-    def forward():
-        with torch.inference_mode():
-            return model(x1, x2)[1][-1]
+    flows = {}
+    fwd = {}
+    fused = get_eval_model("eemflow", fast_head=True, fast_pyramid=True)
+    fused.load_state_dict(sd)
+    fused.to(device)
+    for label, m in (("standard", model), ("fused (--fast_head --fast_pyramid)", fused)):
+        def forward(m=m):
+            with torch.inference_mode():
+                return m(x1, x2)[1][-1]
 
-    flow = forward()
-    require(tuple(flow.shape) == (1, H, W, 2) and bool(torch.isfinite(flow).all()),
-            "720x1280 forward is not finite or has the wrong shape")
-    fwd_ms = cuda_ms(forward, reps=20)
-    say(f"EEMFlow forward 720x1280 B=1 (host-voxelized input on the card): {fwd_ms:.3f} ms "
-        f"({1e3 / fwd_ms:.1f} fps)")
+        flows[label] = flow = forward()
+        require(tuple(flow.shape) == (1, H, W, 2) and bool(torch.isfinite(flow).all()),
+                f"720x1280 {label} forward is not finite or has the wrong shape")
+        fwd[label] = (cuda_ms(forward, reps=20), queued_ms(forward, reps=2))
+        say(f"EEMFlow forward 720x1280 B=1, {label} (host-voxelized input on the card): "
+            f"{fwd[label][0]:.3f} ms per call back to back ({1e3 / fwd[label][0]:.1f} fps), "
+            f"{fwd[label][1]:.3f} ms on the device (queued)")
+    err = float((flows["standard"] - flows["fused (--fast_head --fast_pyramid)"]).abs().max())
+    say(f"720x1280 fused vs standard forward: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g})")
+    require(err <= FORWARD_TOL, "the fused 720x1280 forward disagrees with the standard one")
 
     ds = HREMEventFlow(os.path.join(tmp, "hrem"), raw_events=True)
     ds.change_test_sequence("indoor_fast")
@@ -402,6 +606,7 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> l
             "launches": launches["voxel_scatter"], "max_abs_err": errs["voxel_scatter"],
             "ms": k1_ms, "wrapper_ms": k1_wrapper, "plain_ms": k1_plain,
             "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
+            "standard_ms": None,
         },
         {
             "name": "local_corr", "route": "cuda",
@@ -410,8 +615,145 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> l
             "launches": launches["local_corr"], "max_abs_err": errs["local_corr"],
             "ms": k2_ms, "wrapper_ms": k2_wrapper, "plain_ms": k2_plain,
             "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+            "standard_ms": None,
         },
+        k3_row,
+        k4_row,
     ]
+
+
+def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
+    """K3 per pyramid level and over the six calls of one 720x1280 B=1
+    forward, and K4 on the forward's pooled grids: device time (queued),
+    wrapper calls back to back, the twin, the bound, and the standard path
+    for the same work (cuDNN convs + LeakyReLU + ``F.avg_pool2d`` of the
+    level; the standard coarse stage: K2, rconvs, decoders, ``out_conv``)."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels.fused_convs import pack_chain
+    from eemflow_tpu_torch.models.eemflow import LEVEL_CHAINS, POOLS
+    from eemflow_tpu_torch.ops.pad import InputPadder
+    import torch.nn.functional as F
+
+    with torch.inference_mode():
+        padder = InputPadder((H, W), mode="chairs", eval_pad_rate=model.pad_rate)
+        evs = padder.pad_nchw(x1.permute(0, 3, 1, 2).contiguous(), x2.permute(0, 3, 1, 2).contiguous())
+        stems = (model.pconv1_1, model.pconv2_1, model.pconv3_1)
+        # the stride-1 chain's input of each level, for each frame
+        inputs = []
+        for ev in evs:
+            f, per = ev, []
+            for lvl, names in enumerate(LEVEL_CHAINS):
+                g = stems[lvl](f)
+                per.append(g)
+                for n in names:
+                    g = getattr(model, n)(g)
+                f = g
+            inputs.append(per)
+        chains = [
+            ([getattr(model, n)[0].weight for n in names], [getattr(model, n)[0].bias for n in names])
+            for names in LEVEL_CHAINS
+        ]
+        packs = [pack_chain(ws, bs, False, device) for ws, bs in chains]
+
+        def fused(frame, lvl):
+            return k3.fused_convs(inputs[frame][lvl], *chains[lvl], POOLS[lvl], torch.float32,
+                                  lvl < 2, packed=packs[lvl])
+
+        def plain(frame, lvl):
+            return k3.plain(inputs[frame][lvl], *chains[lvl], POOLS[lvl], torch.float32, lvl < 2)
+
+        def standard(frame, lvl):
+            g = inputs[frame][lvl]
+            for n in LEVEL_CHAINS[lvl]:
+                g = getattr(model, n)(g)
+            return F.avg_pool2d(g, POOLS[lvl])
+
+        flops_all = bytes_all = 0
+        for lvl in range(3):
+            (cin, h, w), widths, pool, emit_full = K3_LEVELS[lvl]
+            require(tuple(inputs[0][lvl].shape) == (1, cin, h, w), "K3 level shape differs from the forward's")
+            flops, nbytes = k3_flops_bytes(1, cin, h, w, widths, emit_full, pool)
+            flops_all += 2 * flops
+            bytes_all += 2 * nbytes
+            b_ms, b_by = bound_ms(nbytes, flops)
+            one = cold_queued_ms(lambda: fused(0, lvl), 20, device)
+            one_warm = queued_ms(lambda: fused(0, lvl), reps=20)
+            one_wrapper = cuda_ms(lambda: fused(0, lvl))
+            one_plain = cuda_ms(lambda: plain(0, lvl))
+            one_std = cold_queued_ms(lambda: standard(0, lvl), 10, device)
+            say(f"K3 level {lvl + 1} [1,{cin},{h},{w}] convs {list(widths)} pool {pool}: {one:.4f} ms "
+                f"on the device after an L2 flush ({one_warm:.4f} warm, queued), {one_wrapper:.4f} ms "
+                f"per wrapper call; bound {b_ms:.4f} ms "
+                f"({b_by}: {flops} FLOP, {nbytes} B); twin {one_plain:.4f} ms; standard path "
+                f"(cuDNN conv{'s' if len(widths) > 1 else ''} + LeakyReLU + avg_pool2d) {one_std:.4f} ms "
+                f"on the device after an L2 flush")
+        six = lambda fn: [fn(f, l) for f in range(2) for l in range(3)]
+        k3_ms = cold_queued_ms(lambda: six(fused), 10, device)
+        k3_warm = queued_ms(lambda: six(fused), reps=10)
+        k3_wrapper = cuda_ms(lambda: six(fused))
+        k3_plain = cuda_ms(lambda: six(plain))
+        k3_std = cold_queued_ms(lambda: six(standard), 5, device)
+        k3_bound, k3_by = bound_ms(bytes_all, flops_all)
+        say(f"K3, the six calls of one forward (3 levels x 2 frames): {k3_ms:.4f} ms on the device "
+            f"after an L2 flush ({k3_warm:.4f} warm, queued), {k3_wrapper:.4f} ms of wrapper calls; "
+            f"bound {k3_bound:.4f} ms ({k3_by}: {flops_all} FLOP, {bytes_all} B); twin "
+            f"{k3_plain:.4f} ms; standard path {k3_std:.4f} ms on the device after an L2 flush; no "
+            f"single PyTorch call computes it")
+
+        # K4 on the pooled grids of this forward
+        pooled = [[standard(f, l) for l in range(3)] for f in range(2)]
+        nhwc = lambda ps: [p.permute(0, 2, 3, 1) for p in ps]
+        hw_weights = model._head_weights()
+        from eemflow_tpu_torch.ops.coarse_head import coarse_head
+
+        def head(impl="kernel"):
+            return coarse_head(nhwc(pooled[0]), nhwc(pooled[1]), hw_weights, model.groups,
+                               model.corr_indices, model.max_displacement, impl=impl)
+
+        def standard_head():
+            flows = [
+                dec(torch.cat([model._corr(a, b), rconv(a)], dim=1))
+                for a, b, rconv, dec in zip(pooled[0], pooled[1],
+                                            (model.rconv_1, model.rconv_2, model.rconv_3),
+                                            (model.decoder_1, model.decoder_2, model.decoder_3))
+            ]
+            return model.out_conv(torch.cat(flows, dim=1))
+
+        ph, pw = pooled[0][0].shape[2:]
+        k4_flops, k4_bytes = k4_flops_bytes(1, ph, pw, hw_weights.kernel(device), len(model.corr_indices))
+        k4_bound, k4_by = bound_ms(k4_bytes, k4_flops)
+        err = float((head() - standard_head().permute(0, 2, 3, 1)).abs().max())
+        require(err <= FORWARD_TOL, "K4 on the forward's grids disagrees with the standard coarse stage")
+        k4_ms = cold_queued_ms(head, 20, device)
+        k4_warm = queued_ms(head, reps=20)
+        k4_wrapper = cuda_ms(head)
+        k4_plain = cuda_ms(lambda: head("plain"))
+        k4_std = cold_queued_ms(standard_head, 5, device)
+        k4_std_warm = queued_ms(standard_head, reps=5)
+        say(f"K4 coarse_head B=1 {ph}x{pw} (groups {model.groups}): {k4_ms:.4f} ms on the device "
+            f"after an L2 flush ({k4_warm:.4f} warm, queued), {k4_wrapper:.4f} ms per wrapper call; "
+            f"bound {k4_bound:.6f} ms ({k4_by}: {k4_flops} FLOP, {k4_bytes} B); twin "
+            f"{k4_plain:.4f} ms; standard coarse stage {k4_std:.4f} ms on the device after an L2 "
+            f"flush ({k4_std_warm:.4f} warm; max|Δ| to it {err:.3e}); no single PyTorch call "
+            f"computes it")
+
+    k3_row = {
+        "name": "fused_convs_pool", "route": "cuda",
+        "source": "eemflow_tpu_torch/kernels/csrc/fused_convs.cu",
+        "replaces": "eemflow_tpu/ops/pallas/fused_convs.py:176",
+        "launches": launches["fused_convs_pool"], "max_abs_err": errs["fused_convs_pool"],
+        "ms": k3_ms, "warm_ms": k3_warm, "wrapper_ms": k3_wrapper, "plain_ms": k3_plain,
+        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None, "standard_ms": k3_std,
+    }
+    k4_row = {
+        "name": "coarse_head", "route": "cuda",
+        "source": "eemflow_tpu_torch/kernels/csrc/coarse_head.cu",
+        "replaces": "eemflow_tpu/ops/pallas/coarse_head.py:275",
+        "launches": launches["coarse_head"], "max_abs_err": errs["coarse_head"],
+        "ms": k4_ms, "warm_ms": k4_warm, "wrapper_ms": k4_wrapper, "plain_ms": k4_plain,
+        "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "standard_ms": k4_std,
+    }
+    return k3_row, k4_row
 
 
 def run(device: torch.device) -> dict:

@@ -1,5 +1,6 @@
-"""Build the port's CUDA kernels: one ``nvcc`` call, both sources, one
-C-ABI shared library loaded with ``ctypes``.
+"""Build the port's CUDA kernels: one ``nvcc -c`` per source, all started
+together, then one link into a C-ABI shared library loaded with
+``ctypes``.
 
 No ``torch.utils.cpp_extension``, no PyTorch headers, no pybind and no
 ninja: a source that includes PyTorch's headers takes minutes to compile,
@@ -17,17 +18,18 @@ import os
 import shutil
 import subprocess
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
-SOURCES = ("voxel_scatter.cu", "local_corr.cu")
+SOURCES = ("voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu")
 ARCH = "sm_90a"
-NVCC_FLAGS = (
+COMPILE_FLAGS = (
     "-gencode", f"arch=compute_90a,code={ARCH}",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared", "-gencode", f"arch=compute_90a,code={ARCH}")
 
 _lib: Optional[ctypes.CDLL] = None
 # what this process's build printed (``-Xptxas -v``: registers, spills)
@@ -41,7 +43,7 @@ def source_paths() -> List[str]:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in source_paths():
         with open(p, "rb") as f:
             h.update(f.read())
@@ -58,8 +60,12 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(out_path: str, nvcc: str = "nvcc") -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", out_path, *source_paths()]
+def nvcc_commands(out_path: str, nvcc: str = "nvcc") -> Tuple[List[List[str]], List[str]]:
+    """(one compile command per source, the link command) for a library
+    at ``out_path``; the objects go beside it."""
+    objs = [f"{out_path}.{os.path.splitext(s)[0]}.o" for s in SOURCES]
+    compiles = [[nvcc, *COMPILE_FLAGS, "-c", "-o", o, src] for o, src in zip(objs, source_paths())]
+    return compiles, [nvcc, *LINK_FLAGS, "-o", out_path, *objs]
 
 
 def build() -> str:
@@ -70,14 +76,38 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
+    compiles, link = nvcc_commands(tmp, find_nvcc())
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        nvcc_command(tmp, find_nvcc()), capture_output=True, text=True, timeout=600
-    )
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in compiles
+    ]
+    logs = []
+    failed = []
+    try:
+        for cmd, proc in zip(compiles, procs):
+            out, _ = proc.communicate(timeout=600)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(cmd[-1])} ({proc.returncode})")
+    finally:
+        for proc in procs:  # a timeout leaves no compiler running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True, timeout=600)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode})")
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    for cmd in compiles:
+        obj = cmd[cmd.index("-o") + 1]
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}:\n{build_log}")
     # atomic rename: a half-written library is never loadable
     os.replace(tmp, so)
     return so
@@ -89,6 +119,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.voxel_scatter_launch.restype = i
     lib.local_corr_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
     lib.local_corr_launch.restype = i
+    lib.fused_convs_launch.argtypes = [p, p]
+    lib.fused_convs_launch.restype = i
+    lib.coarse_head_launch.argtypes = [p, p]
+    lib.coarse_head_launch.restype = i
+    lib.fused_convs_args_size.restype = i
+    lib.coarse_head_args_size.restype = i
     lib.eemflow_error_string.argtypes = [i]
     lib.eemflow_error_string.restype = ctypes.c_char_p
 

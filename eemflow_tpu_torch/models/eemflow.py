@@ -21,6 +21,17 @@ the displacements computed are ``corr_indices``.
 The 49-entry mask committed in the reference (``EEMFlow.py:85-94``) gives
 65 decoder inputs against decoders built for 69, so ``INDEX_53``, the
 53-entry diamond of EEMFlow+ (``EEMFlow+.py:89-97``), is the default.
+
+Eval-only fused modes (counterpart of ``eemflow_tpu/models/eemflow.py:
+184-216, 227-277, 401-413``), same parameters, same float32 math:
+``fast_pyramid`` runs each level's stride-1 convs and its pool as one
+call of kernel K3 (``kernels/fused_convs.py``; ``fast_pyramid_dtype="bf16"``
+rounds the conv operands to bf16), the stride-2 convs stay cuDNN convs;
+``fast_head`` runs the whole coarse stage as one call of kernel K4
+(``ops/coarse_head.py``; ``fast_head_impl="plain"`` runs its PyTorch twin
+instead, the measurement control).  ``train=True`` takes the standard
+path.  The packed weights of both are kept on the model and dropped when
+a state dict is loaded or the model is moved.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from eemflow_tpu_torch.kernels.fused_convs import fused_convs, pack_chain
 from eemflow_tpu_torch.models.layers import ConvRelu, channel_shuffle, conv2d
+from eemflow_tpu_torch.ops.coarse_head import IMPLS, HeadWeights, coarse_head
 from eemflow_tpu_torch.ops.correlation import local_correlation
 from eemflow_tpu_torch.ops.pad import InputPadder
 from eemflow_tpu_torch.ops.upsample import upsample_flow_to
@@ -62,6 +75,9 @@ INDEX_53 = (
 
 # avg-pool factor per pyramid level: every level lands on the H/64 × W/64 grid
 POOLS = (32, 16, 8)
+# the stride-1 convs of each pyramid level (what ``fast_pyramid`` fuses)
+LEVEL_CHAINS = (("pconv1_2",), ("pconv2_2", "pconv2_3"), ("pconv3_2", "pconv3_3"))
+PYRAMID_DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
 class Decoder(nn.Module):
@@ -92,7 +108,9 @@ class Decoder(nn.Module):
 class EEMFlow(nn.Module):
     """Flagship model.  ``siamese_stack``: run both event frames through
     the pyramid and pools as one 2B batch (per-frame results identical;
-    fewer, larger launches) — the ``--fast`` serving mode."""
+    fewer, larger launches) — the ``--fast`` serving mode.  ``fast_pyramid``
+    (which wins over ``siamese_stack``) and ``fast_head``: the eval-only
+    fused modes of the module docstring."""
 
     def __init__(
         self,
@@ -103,14 +121,29 @@ class EEMFlow(nn.Module):
         max_displacement: int = 4,
         pad_rate: int = 64,
         siamese_stack: bool = False,
+        fast_pyramid: bool = False,
+        fast_pyramid_dtype: str = "float32",
+        fast_head: bool = False,
+        fast_head_impl: str = "kernel",
     ):
         super().__init__()
+        if fast_pyramid_dtype not in PYRAMID_DTYPES:
+            raise ValueError(f"fast_pyramid_dtype must be one of {sorted(PYRAMID_DTYPES)}")
+        if fast_head_impl not in IMPLS:
+            raise ValueError(f"fast_head_impl must be one of {IMPLS}")
         self.groups = groups
         self.out_mesh_size = out_mesh_size
         self.corr_indices = tuple(int(i) for i in corr_indices)
         self.max_displacement = max_displacement
         self.pad_rate = pad_rate
         self.siamese_stack = siamese_stack
+        self.fast_pyramid = fast_pyramid
+        self.fast_pyramid_dtype = fast_pyramid_dtype
+        self.fast_head = fast_head
+        self.fast_head_impl = fast_head_impl
+        # packed weights of the fused modes; stale once the parameters change
+        self._fast_cache: dict = {}
+        self.register_load_state_dict_post_hook(lambda module, _: module._fast_cache.clear())
 
         self.pconv1_1 = ConvRelu(n_first_channels, 16, stride=2)
         self.pconv1_2 = ConvRelu(16, 16)
@@ -139,6 +172,44 @@ class EEMFlow(nn.Module):
         f3 = self.pconv3_3(self.pconv3_2(self.pconv3_1(f2)))
         return tuple(F.avg_pool2d(f, k) for f, k in zip((f1, f2, f3), POOLS))
 
+    def _apply(self, *args, **kwargs):
+        self._fast_cache.clear()
+        return super()._apply(*args, **kwargs)
+
+    def _fast_pyramid(self, x: torch.Tensor):
+        """Eval pyramid: cuDNN stride-2 convs, and each level's stride-1
+        convs + pool as one K3 call, reading the same parameters as
+        ``pyramid``.  Only the pooled grids come out: the last level's full
+        output feeds nothing."""
+        dtype = PYRAMID_DTYPES[self.fast_pyramid_dtype]
+        chains = [
+            ([getattr(self, n)[0].weight for n in names], [getattr(self, n)[0].bias for n in names])
+            for names in LEVEL_CHAINS
+        ]
+        packs = [None] * len(chains)
+        if x.device.type == "cuda":
+            key = ("pyramid", x.device, dtype)
+            if key not in self._fast_cache:
+                self._fast_cache[key] = [
+                    pack_chain(ws, bs, dtype == torch.bfloat16, x.device) for ws, bs in chains
+                ]
+            packs = self._fast_cache[key]
+        pooled = []
+        f = x
+        for lvl, (stem, pool) in enumerate(zip((self.pconv1_1, self.pconv2_1, self.pconv3_1), POOLS)):
+            f, p = fused_convs(
+                stem(f), *chains[lvl], pool=pool, compute_dtype=dtype,
+                emit_full=lvl < len(POOLS) - 1, packed=packs[lvl],
+            )
+            pooled.append(p)
+        return tuple(pooled)
+
+    def _head_weights(self) -> HeadWeights:
+        hw = self._fast_cache.get("head")
+        if hw is None:
+            hw = self._fast_cache["head"] = HeadWeights(dict(self.named_parameters()), self.groups)
+        return hw
+
     def _corr(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """NCHW pooled features → NCHW correlation through the NHWC op."""
         cv = local_correlation(
@@ -156,13 +227,24 @@ class EEMFlow(nn.Module):
             events1.permute(0, 3, 1, 2).contiguous(),
             events2.permute(0, 3, 1, 2).contiguous(),
         )
-        if self.siamese_stack:
+        if self.fast_pyramid and not train:
+            p1 = self._fast_pyramid(ev1)
+            p2 = self._fast_pyramid(ev2)
+        elif self.siamese_stack:
             pooled = self.pyramid(torch.cat([ev1, ev2], dim=0))
             p1 = [p[:B] for p in pooled]
             p2 = [p[B:] for p in pooled]
         else:
             p1 = self.pyramid(ev1)
             p2 = self.pyramid(ev2)
+
+        if self.fast_head and not train:
+            nhwc = lambda ps: [p.permute(0, 2, 3, 1) for p in ps]
+            out = coarse_head(
+                nhwc(p1), nhwc(p2), self._head_weights(), self.groups,
+                self.corr_indices, self.max_displacement, impl=self.fast_head_impl,
+            )
+            return (events1, events2), [upsample_flow_to(out, out_size)]
 
         rconvs = (self.rconv_1, self.rconv_2, self.rconv_3)
         decoders = (self.decoder_1, self.decoder_2, self.decoder_3)

@@ -10,7 +10,8 @@ weights are random (timing does not depend on them).  Writes a Chrome
 trace to ``--logdir`` and prints one JSON line.
 
 Usage:
-  python -m eemflow_tpu_torch.tools.profile_model --size 720 1280 -bs 1 [--fast] [--events 30000]
+  python -m eemflow_tpu_torch.tools.profile_model --size 720 1280 -bs 1 [--fast] \
+      [--fast_head] [--fast_pyramid] [--events 30000]
 """
 
 from __future__ import annotations
@@ -46,6 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "many events per frame (0: the forward alone)")
     p.add_argument("--fast", action="store_true",
                    help="every parity-safe serving mode of the family")
+    p.add_argument("--fast_head", action="store_true",
+                   help="EEMFlow's coarse stage as one kernel (K4)")
+    p.add_argument("--fast_pyramid", action="store_true",
+                   help="each pyramid level's stride-1 convs + pool as one kernel (K3)")
     p.add_argument("--logdir", default="runs/profile_torch")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
@@ -67,7 +72,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(0)
     h, w = args.size
-    model = get_eval_model("eemflow", **(fast_eval_kwargs("eemflow") if args.fast else {}))
+    model_kwargs = {k: True for k in ("fast_head", "fast_pyramid") if getattr(args, k)}
+    if args.fast:
+        model_kwargs.update(fast_eval_kwargs("eemflow"))
+    model = get_eval_model("eemflow", **model_kwargs)
     rng = np.random.default_rng(0)
     if args.events:
         if args.batch_size != 1:
@@ -114,7 +122,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     result = {
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "size": [h, w], "batch": args.batch_size, "fast": args.fast, "events": args.events,
+        "size": [h, w], "batch": args.batch_size, "fast": args.fast,
+        "fast_head": args.fast_head, "fast_pyramid": args.fast_pyramid, "events": args.events,
         "reps": args.reps, "ms_per_call": wall_ms / args.reps,
         "device_busy_share": busy_ms / wall_ms if kernels else None,
         "device_ms_per_call": busy_ms / args.reps if kernels else None,

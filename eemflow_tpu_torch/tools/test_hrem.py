@@ -8,7 +8,7 @@ card, or on the CPU with ``--device cpu``.
 Usage:
   python -m eemflow_tpu_torch.tools.test_hrem -model eemflow -int dt1 \
       --data_root dataset/HREM --checkpoint EEMFlow_HREM_dt1.pth.tar \
-      [--device_voxelize] [--eval_batch 2] [--device cpu]
+      [--device_voxelize] [--eval_batch 2] [--fast_head] [--fast_pyramid] [--device cpu]
 """
 
 from __future__ import annotations
@@ -42,6 +42,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="samples per batched forward (per-sample metrics unchanged)")
     p.add_argument("--bucket_rungs", type=int, default=1,
                    help="event bucket ladder rungs (eval default: fixed bucket)")
+    p.add_argument("--fast_head", action="store_true",
+                   help="EEMFlow: the whole coarse stage as one kernel (K4; f32 "
+                   "math, parity to fp noise — safe for checkpoint evals)")
+    p.add_argument("--fast_pyramid", action="store_true",
+                   help="EEMFlow: each pyramid level's stride-1 convs + pool as one "
+                   "kernel (K3; f32 math, parity to fp noise)")
     p.add_argument("--fast", action="store_true",
                    help="every parity-safe serving mode of the family "
                    "(registry.fast_eval_kwargs)")
@@ -57,7 +63,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    model = get_eval_model(args.model, **(fast_eval_kwargs(args.model) if args.fast else {}))
+    model_kwargs = {k: True for k in ("fast_head", "fast_pyramid") if getattr(args, k)}
+    if args.fast:
+        model_kwargs.update(fast_eval_kwargs(args.model))
+    model = get_eval_model(args.model, **model_kwargs)
     if not args.checkpoint.endswith((".pth", ".pth.tar", ".pt")):
         raise SystemExit("--checkpoint must be a PyTorch .pth/.pth.tar/.pt file")
     sd = to_state_dict(load_torch_checkpoint(args.checkpoint))

@@ -1,7 +1,10 @@
 """EEMFlow forward of the port against the JAX forward on the same weights,
 at 64×96 and at 96×128 (which pads to 128×128 inside): JAX params carried
 across by ``compat.from_jax``, and the golden ``.pth.tar`` loaded with
-``load_state_dict``.  Tolerance 1e-4 absolute on flow."""
+``load_state_dict``.  Tolerance 1e-4 absolute on flow.  The fused eval
+modes (``fast_pyramid``, ``fast_head``; on the CPU their twins) against
+the JAX fused forward at 128×192, 1e-4; the bf16 pyramid within 0.05 of
+the JAX standard forward, the JAX package's own serving budget."""
 
 import os
 
@@ -95,7 +98,66 @@ def test_registry():
     assert fast_eval_kwargs("EEMFlow") == {"siamese_stack": True}
     assert not get_eval_model("EEMFlow").training
     assert get_model("eemflow", groups=1).decoder_1.groups == 1
+    assert get_eval_model("eemflow", fast_head=True, fast_pyramid=True).fast_pyramid
     with pytest.raises(ValueError, match="does not support"):
-        get_eval_model("eemflow", fast_head=True)
+        get_eval_model("eemflow", fast_decoders=True)
     with pytest.raises(KeyError):
         get_model("eraft")
+
+
+FAST_MODES = {
+    "both": dict(fast_pyramid=True, fast_head=True),
+    "pyramid": dict(fast_pyramid=True),
+    "head": dict(fast_head=True),
+}
+
+
+@pytest.fixture(scope="module")
+def fast_inputs():
+    rng = np.random.default_rng(9)
+    return [rng.standard_normal((1, 128, 192, 5)).astype(np.float32) for _ in range(2)]
+
+
+@pytest.fixture(scope="module")
+def jax_fused_flow(jax_init_params, fast_inputs):
+    """The JAX forward with both fused modes (its Pallas pyramid in
+    interpret mode, its head's jnp twin)."""
+    m = JaxEEMFlow(fast_pyramid=True, fast_head=True, fast_head_impl="xla")
+    ev1, ev2 = (jnp.asarray(e) for e in fast_inputs)
+    return np.asarray(jax.jit(m.apply)(jax_init_params, ev1, ev2)[1][-1])
+
+
+@pytest.mark.parametrize("mode", sorted(FAST_MODES))
+def test_fused_modes_match_jax(jax_init_params, jax_fused_flow, fast_inputs, mode):
+    model = get_eval_model("eemflow", **FAST_MODES[mode])
+    model.load_state_dict(eemflow_state_dict_from_jax(jax_init_params))
+    got = _port_flow(model, *fast_inputs)
+    assert got.shape == (1, 128, 192, 2)
+    np.testing.assert_allclose(got, jax_fused_flow, rtol=0, atol=TOL)
+
+
+def test_fused_pyramid_bf16_near_jax_standard(jax_apply, jax_init_params, fast_inputs):
+    ev1, ev2 = fast_inputs
+    want = np.asarray(jax_apply(jax_init_params, jnp.asarray(ev1), jnp.asarray(ev2))[1][-1])
+    model = get_eval_model("eemflow", fast_pyramid=True, fast_pyramid_dtype="bf16", fast_head=True)
+    model.load_state_dict(eemflow_state_dict_from_jax(jax_init_params))
+    got = _port_flow(model, ev1, ev2)
+    assert np.isfinite(got).all() and np.abs(got - want).max() < 0.05
+
+
+def test_fused_weights_follow_the_state_dict(jax_init_params, golden_arrays, fast_inputs):
+    """The packed weights of the fused modes are dropped when a state dict
+    is loaded again: the same model object follows each checkpoint."""
+    fused = get_eval_model("eemflow", fast_pyramid=True, fast_head=True)
+    std = get_eval_model("eemflow")
+    for sd in (eemflow_state_dict_from_jax(jax_init_params), to_state_dict(golden_arrays)):
+        fused.load_state_dict(sd)
+        std.load_state_dict(sd)
+        np.testing.assert_allclose(
+            _port_flow(fused, *fast_inputs), _port_flow(std, *fast_inputs), rtol=0, atol=TOL
+        )
+        assert "head" in fused._fast_cache
+    with pytest.raises(ValueError):
+        get_eval_model("eemflow", fast_head_impl="pallas")
+    with pytest.raises(ValueError):
+        get_eval_model("eemflow", fast_pyramid_dtype="float16")

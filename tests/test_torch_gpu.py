@@ -87,3 +87,156 @@ def test_forward_on_card_matches_cpu(cuda):
         ref = model(ev1, ev2)[1][-1]
         got = model.to(cuda)(ev1.to(cuda), ev2.to(cuda))[1][-1].cpu()
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _conv_params(rng, cins, couts, device):
+    """OIHW weights at a He-like scale (activations stay O(1) down a chain)
+    and biases, float32 on ``device``."""
+    ws, bs = [], []
+    for cin, cout in zip(cins, couts):
+        w = rng.standard_normal((cout, cin, 3, 3)) * np.sqrt(2.0 / (9 * cin))
+        ws.append(torch.from_numpy(w.astype(np.float32)).to(device))
+        bs.append(torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32)).to(device))
+    return ws, bs
+
+
+# EEMFlow's three pyramid levels at 720x1280 (padded 768x1280), B=2:
+# (input [B, C, H, W], conv widths, pool, emit_full)
+K3_LEVELS = {
+    "level1": ((2, 16, 384, 640), (16,), 32, True),
+    "level2": ((2, 32, 192, 320), (32, 32), 16, True),
+    "level3": ((2, 64, 96, 160), (64, 64), 8, False),
+}
+# float32: only the summation order differs; bf16: both sides round the
+# same operands, but an intermediate that differs in its last float32 bit
+# can round to the neighbouring bf16 value
+K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-3}
+
+
+def _max_rel_err(got, ref):
+    return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("level", sorted(K3_LEVELS))
+def test_fused_convs_kernel_matches_twin(cuda, level, dtype):
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import launch_counts
+
+    shape, widths, pool, emit_full = K3_LEVELS[level]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    ws, bs = _conv_params(rng, (shape[1],) + widths[:-1], widths, cuda)
+    before = launch_counts["fused_convs_pool"]
+    full, pooled = k3.fused_convs(x, ws, bs, pool, dtype, emit_full)
+    assert launch_counts["fused_convs_pool"] == before + 1
+    ref_full, ref_pooled = k3.plain(x, ws, bs, pool, dtype, emit_full)
+    torch.cuda.synchronize()
+    assert (full is None) == (not emit_full)
+    if emit_full:
+        assert _max_rel_err(full, ref_full) <= K3_TOL[dtype]
+    assert tuple(pooled.shape) == (shape[0], widths[-1], shape[2] // pool, shape[3] // pool)
+    assert _max_rel_err(pooled, ref_pooled) <= K3_TOL[dtype]
+
+
+def test_fused_convs_kernel_concat_chain_and_layouts(cuda):
+    """A FlowEstimatorDense-style concat chain with a linear last conv and
+    no pool at a ragged size, from an NHWC view; and a pooled chain that
+    does not fit one launch's shared memory, split at its midpoint."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 37, 45, 16)).astype(np.float32)).to(cuda)
+    cins, couts = (16, 24, 32), (8, 8, 3)
+    ws, bs = _conv_params(rng, cins, couts, cuda)
+    flags = dict(relus=(True, True, False), concat=(True, True, False))
+    got, none = k3.fused_convs(x.permute(0, 3, 1, 2), ws, bs, None, **flags)
+    ref, _ = k3.plain(x.permute(0, 3, 1, 2), ws, bs, None, **flags)
+    torch.cuda.synchronize()
+    assert none is None and tuple(got.shape) == (2, 3, 37, 45)
+    assert _max_rel_err(got, ref) <= K3_TOL[torch.float32]
+
+    x = torch.from_numpy(rng.standard_normal((1, 32, 64, 64)).astype(np.float32)).to(cuda)
+    ws, bs = _conv_params(rng, (32, 32), (32, 32), cuda)
+    before = launch_counts["fused_convs_pool"]
+    full, pooled = k3.fused_convs(x, ws, bs, 32)
+    assert launch_counts["fused_convs_pool"] == before + 2
+    ref_full, ref_pooled = k3.plain(x, ws, bs, 32)
+    torch.cuda.synchronize()
+    assert _max_rel_err(full, ref_full) <= K3_TOL[torch.float32]
+    assert _max_rel_err(pooled, ref_pooled) <= K3_TOL[torch.float32]
+
+
+def _head_params(rng, groups, device, channels=(16, 32, 64), k=53):
+    """Random coarse-stage parameters by the port's state-dict names."""
+    from eemflow_tpu_torch.ops.coarse_head import conv_names
+
+    widths = ((16, None), (100, k + 16), (100, 100), (100, 100), (100, 100), (64, 100), (32, 64), (2, 32))
+    params = {}
+    for lvl, c in zip((1, 2, 3), channels):
+        for i, (name, (cout, cin)) in enumerate(zip(conv_names(lvl), widths)):
+            cin = c if cin is None else cin
+            g = groups if i in (2, 3, 4) else 1
+            w = rng.standard_normal((cout, cin // g, 3, 3)) * np.sqrt(2.0 / (9 * cin // g))
+            params[f"{name}.weight"] = torch.from_numpy(w.astype(np.float32)).to(device)
+            params[f"{name}.bias"] = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32)).to(device)
+    params["out_conv.weight"] = torch.from_numpy(rng.standard_normal((2, 6, 1, 1)).astype(np.float32)).to(device)
+    params["out_conv.bias"] = torch.from_numpy(rng.standard_normal(2).astype(np.float32)).to(device)
+    return params
+
+
+@pytest.mark.parametrize("groups", [5, 1])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_coarse_head_kernel_matches_twin(cuda, batch, groups):
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+    from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
+
+    rng = np.random.default_rng(5)
+    hw = HeadWeights(_head_params(rng, groups, cuda), groups)
+    f1, f2 = (
+        [torch.from_numpy(rng.standard_normal((batch, 12, 20, c)).astype(np.float32)).to(cuda) for c in (16, 32, 64)]
+        for _ in range(2)
+    )
+    before = launch_counts["coarse_head"]
+    got = coarse_head(f1, f2, hw, groups, INDEX_53, 4)
+    assert launch_counts["coarse_head"] == before + 1
+    ref = coarse_head(f1, f2, hw, groups, INDEX_53, 4, impl="plain")
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (batch, 12, 20, 2)
+    assert _max_rel_err(got, ref) <= 1e-5
+    # a grid too large for shared memory runs from a device-memory scratch
+    f1, f2 = (
+        [torch.from_numpy(rng.standard_normal((batch, 17, 30, c)).astype(np.float32)).to(cuda) for c in (16, 32, 64)]
+        for _ in range(2)
+    )
+    got = coarse_head(f1, f2, hw, groups, INDEX_53, 4)
+    ref = coarse_head(f1, f2, hw, groups, INDEX_53, 4, impl="plain")
+    torch.cuda.synchronize()
+    assert _max_rel_err(got, ref) <= 1e-5
+
+
+def test_fused_modes_on_card_match_standard(cuda):
+    import os
+
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eemflow_hrem_golden.pth.tar")
+    sd = to_state_dict(load_torch_checkpoint(ckpt))
+    rng = np.random.default_rng(6)
+    ev1, ev2 = (torch.from_numpy(rng.standard_normal((2, 192, 256, 5)).astype(np.float32)).to(cuda) for _ in range(2))
+    std = get_eval_model("eemflow")
+    fused = get_eval_model("eemflow", fast_pyramid=True, fast_head=True)
+    for m in (std, fused):
+        m.load_state_dict(sd)
+        m.to(cuda)
+    before = dict(launch_counts)
+    with torch.inference_mode():
+        ref = std(ev1, ev2)[1][-1]
+        got = fused(ev1, ev2)[1][-1]
+    assert launch_counts["fused_convs_pool"] - before["fused_convs_pool"] == 6
+    assert launch_counts["coarse_head"] - before["coarse_head"] == 1
+    assert float((got - ref).abs().max()) <= 1e-4

@@ -1,8 +1,9 @@
 """The port's HREM eval CLI on the CPU at protocol resolution (720×1280):
 the golden checkpoint on the seed-99 synthetic split must reproduce the
-committed AEE within 0.01, and the device-voxelize paths must agree with
-the host path within 1e-5.  Also the port's HREM dataset against the JAX
-package's on the same files."""
+committed AEE within 0.01, and the device-voxelize paths and the fused
+modes (``--fast_head --fast_pyramid``) must agree with the host path
+within 1e-5.  Also the port's HREM dataset against the JAX package's on
+the same files, and the profiling and timing tools at a tiny size."""
 
 import csv
 import json
@@ -38,17 +39,33 @@ def _run(root, out_dir, *extra):
     return csv_aee
 
 
-def test_cli_reproduces_golden_aee(hrem_root, tmp_path):
+@pytest.fixture(scope="module")
+def golden_aee():
     with open(GOLDEN) as f:
-        golden = json.load(f)
-    host = _run(hrem_root, tmp_path / "host")
-    assert abs(host - golden["aee"]) < 0.01
+        return json.load(f)["aee"]
+
+
+@pytest.fixture(scope="module")
+def host_aee(hrem_root, tmp_path_factory):
+    """AEE of the standard host-voxelize run."""
+    return _run(hrem_root, tmp_path_factory.mktemp("host"))
+
+
+def test_cli_reproduces_golden_aee(hrem_root, tmp_path, golden_aee, host_aee):
+    host = host_aee
+    assert abs(host - golden_aee) < 0.01
     for name, extra in (
         ("dev", ("--device_voxelize",)),
         ("dev_b2", ("--device_voxelize", "--eval_batch", "2")),
         ("fast", ("--fast",)),
     ):
         assert abs(_run(hrem_root, tmp_path / name, *extra) - host) < 1e-5, name
+
+
+def test_cli_fused_modes(hrem_root, tmp_path, golden_aee, host_aee):
+    fused = _run(hrem_root, tmp_path, "--fast_head", "--fast_pyramid")
+    assert abs(fused - host_aee) < 1e-5
+    assert abs(fused - golden_aee) < 0.01
 
 
 @pytest.mark.parametrize("raw", [False, True], ids=["voxel", "raw_events"])
@@ -65,14 +82,42 @@ def test_dataset_matches_jax(hrem_root, raw):
     np.testing.assert_array_equal(a["valid"], b["valid"])
 
 
-@pytest.mark.parametrize("events", ["0", "3000"], ids=["forward", "device_voxelize_sample"])
-def test_profile_model_on_cpu(tmp_path, events):
+@pytest.mark.parametrize(
+    "extra",
+    [["--events", "0"], ["--events", "3000"], ["--fast_head", "--fast_pyramid"]],
+    ids=["forward", "device_voxelize_sample", "fused_forward"],
+)
+def test_profile_model_on_cpu(tmp_path, extra):
     from eemflow_tpu_torch.tools.profile_model import main as profile_main
 
     res = profile_main([
-        "--device", "cpu", "--size", "64", "96", "--reps", "2", "--events", events,
+        "--device", "cpu", "--size", "64", "96", "--reps", "2", *extra,
         "--logdir", str(tmp_path),
     ])
     assert res["ms_per_call"] > 0 and os.path.exists(res["trace"])
     # no device on the CPU: device metrics are not measured, not invented
     assert res["device_busy_share"] is None and res["top_kernels"] == []
+
+
+@pytest.mark.parametrize(
+    "extra", [[], ["--fast_head", "--fast_pyramid_bf16"]], ids=["standard", "fused_bf16"]
+)
+def test_time_eval_on_cpu(extra):
+    from eemflow_tpu_torch.tools.time_eval import main as time_main
+
+    res = time_main(["--device", "cpu", "--size", "64", "96", "-bs", "1", "--reps", "2", *extra])
+    assert res["device"] == "cpu" and res["ms_per_img"] > 0
+    assert res["modes"] == ({} if not extra else
+                            {"fast_head": True, "fast_head_impl": "kernel",
+                             "fast_pyramid": True, "fast_pyramid_dtype": "bf16"})
+
+
+def test_update_block_bound():
+    """K5's computed bound at ERAFT 512x960, B=1, 12 iterations: the layer
+    list of update_block.py gives 2,675,968 multiply-adds per grid pixel."""
+    from eemflow_tpu_torch.tools.update_block_bound import main as bound_main
+
+    res = bound_main(["--size", "512", "960", "-bs", "1", "--iters", "12"])
+    assert res["grid"] == [64, 120] and res["launches"] == 24
+    assert res["flop"] == 2 * 2_675_968 * 64 * 120 * 12
+    assert res["bound_by"] == "operations" and abs(res["bound_ms"] - res["flop"] / 67e9) < 1e-9

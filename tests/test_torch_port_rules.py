@@ -121,14 +121,33 @@ def test_kernel_wrappers_refuse_other_devices():
                       torch.empty(1, dtype=torch.int32, device="meta"), 5, 4, 4)
 
 
+def test_fused_kernel_wrappers_refuse_other_devices():
+    from eemflow_tpu_torch.kernels.coarse_head import coarse_head_fused
+    from eemflow_tpu_torch.kernels.fused_convs import fused_convs
+    from eemflow_tpu_torch.ops.coarse_head import HeadWeights
+
+    x = torch.empty(1, 8, 16, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_convs(x, [torch.empty(8, 8, 3, 3)], [torch.empty(8)], 8)
+    f = [torch.empty(1, 2, 3, c, device="meta") for c in (16, 32, 64)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        coarse_head_fused(f, f, HeadWeights({}, 5), (0,), 4)
+
+
 def test_build_targets_sm90a_into_an_ignored_directory():
     from eemflow_tpu_torch.kernels import build
 
-    cmd = build.nvcc_command("out.so")
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC", "-v"):
-        assert flag in cmd
-    assert [s for s in cmd if s.endswith(".cu")] == build.source_paths()
+    compiles, link = build.nvcc_commands("out.so")
+    for cmd in compiles:
+        assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-c", "-fPIC", "-v"):
+            assert flag in cmd
+    # one compile per source, all four kernels, linked once into out.so
+    assert [c[-1] for c in compiles] == build.source_paths()
+    assert [os.path.basename(p) for p in build.source_paths()] == [
+        "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu"]
+    assert link[link.index("-o") + 1] == "out.so" and "-shared" in link
+    assert [c[c.index("-o") + 1] for c in compiles] == [p for p in link if p.endswith(".o")]
     assert all(os.path.exists(s) for s in build.source_paths())
     lib = build.library_path()
     assert os.path.dirname(lib) == build.BUILD_DIR and lib.endswith(".so")
