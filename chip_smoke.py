@@ -14,30 +14,38 @@ where it stopped:
      together (seconds, and the ``-Xptxas -v`` lines: registers and spills
      of each kernel);
   2. each kernel against its plain PyTorch twin at the main paths' shapes
-     (K1 voxel scatter, K2 local correlation, K3 fused conv chain + pool at
-     the three 720×1280 pyramid levels in float32 and at level 2 in bf16,
-     and on a small concat chain; K4 coarse head at the three 12×20 levels
-     for B=1 and 2, groups 5 and 1), with the tolerance stated;
+     (K1 voxel scatter, K2 local correlation and its backward, K3 fused
+     conv chain + pool at the three 720×1280 pyramid levels in float32 and
+     at level 2 in bf16, and on a small concat chain; K4 coarse head at the
+     three 12×20 levels for B=1 and 2, groups 5 and 1; K5 update block,
+     both entry points, at ERAFT's 92×160 and 64×120 grids and an odd
+     28×12 one, in float32 and bf16, with He-scaled random weights), with
+     the tolerance stated;
   3. end to end: the port's HREM eval CLI at 720×1280 on the seed-99
-     synthetic split with the golden checkpoint, on the host-voxelize
-     path, the device-voxelize path and the batched device path (the main
-     path of K1 and K2), then with ``--fast_head --fast_pyramid`` (the
-     main path of K3 and K4), each path's launch counts set to 0 just
-     before it and read just after; the golden AEE, the agreement of the
-     paths, and a small forward on the card against the same forward on
-     the CPU in the standard and the fused modes;
+     synthetic split with the golden checkpoints, each path's launch
+     counts set to 0 just before it and read just after: EEMFlow on the
+     host-voxelize path, the device-voxelize path and the batched device
+     path (the main path of K1 and K2), then with ``--fast_head
+     --fast_pyramid`` (the main path of K3 and K4); ERAFT (one sample,
+     12 iterations) on the module path, then with ``--config
+     {"fused_update": true}`` (the main path of K5, 24 launches) and with
+     bf16 operands; the golden AEEs, the agreement of the paths, and small
+     forwards on the card against the same forwards on the CPU;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
-     twin, the library yardstick and, for K3 and K4, the port's standard
-     path for the same work; one 720×1280 B=1 forward in the standard and
-     in the fused modes; one whole device-voxelize eval sample.
+     twin, the library yardstick and, for K3, K4 and K5, the port's
+     standard path for the same work; one 720×1280 B=1 EEMFlow forward in
+     the standard and in the fused modes; one whole device-voxelize eval
+     sample; the ERAFT forward at 720×1280 and 512×960, B=1, on the module
+     path and with ``fused_update``.
 
 Then one JSON line of every ported kernel (``ms`` is device time; for K3
 and K4 with the L2 cache flushed before each call, as a forward leaves
-their weights, and ``warm_ms`` without the flush; ``wrapper_ms`` the time
-per wrapper call back to back; ``standard_ms`` the device time, L2
-flushed, of the standard path that K3 or K4 replaces), and as the last line
+their weights, and ``warm_ms`` without the flush; for K5 one pair of
+calls, one iteration, at the 92×160 grid; ``wrapper_ms`` the time per
+wrapper call back to back; ``standard_ms`` the device time of the
+standard path that K3, K4 or K5 replaces), and as the last line
 ``{"ok": true, "device": {...}}``.  Any fault exits non-zero without the
 ``ok`` line, as does a machine without CUDA.  Synthetic data goes to a
 temporary directory outside the repository.  Parity phases run float32
@@ -59,11 +67,14 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_CKPT = os.path.join(REPO, "tests", "fixtures", "eemflow_hrem_golden.pth.tar")
 GOLDEN_JSON = os.path.join(REPO, "tests", "fixtures", "hrem_golden.json")
+ERAFT_CKPT = os.path.join(REPO, "tests", "fixtures", "eraft_hrem_golden.pth.tar")
+ERAFT_JSON = os.path.join(REPO, "tests", "fixtures", "hrem_golden_eraft.json")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and float32
-# outside the tensor cores, FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32
+# outside the tensor cores and bf16 on them, FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 H, W, BINS = 720, 1280, 5
 K1_TOL_REL = 1e-5  # of the largest cell: atomics sum in no fixed order
@@ -84,6 +95,17 @@ HEAD_CHANNELS = (16, 32, 64)
 GOLDEN_TOL = 0.01
 PATH_TOL = 1e-5
 FORWARD_TOL = 1e-4
+# K5 relative to max(1, largest |plain|): float32 differs in summation
+# order only; bf16 as K3
+K5_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# ERAFT's 1/8 grids at 720x1280 (padded 736x1280) and 512x960, and an odd
+# small one no row tiling of the TPU kernels takes
+K5_GRIDS = ((92, 160), (64, 120), (28, 12))
+K2_GRAD_TOL = 1e-5
+# ERAFT AEE: the fused update against the module path (summation order
+# carried through 12 iterations); bf16 operands against float32
+ERAFT_FUSED_TOL = 1e-3
+ERAFT_BF16_TOL = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -103,11 +125,12 @@ def require(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flop_rate: float = PEAK_FP32_FLOP_PER_S):
     """Least time the card could take: the larger of bytes over the memory
-    rate and float32 operations over the float32 rate."""
+    rate and operations over the peak rate for their type (float32 unless
+    given)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -350,10 +373,96 @@ def phase_parity(device: torch.device) -> dict:
         say(f"K2 local_corr {list(shape)} K=53: max|Δ| {err:.3e} (tolerance {K2_TOL:g})")
         require(tuple(got.shape) == shape[:3] + (53,) and err <= K2_TOL,
                 f"K2 disagrees with its twin at {shape}")
+    phase_parity_k2_backward(device, rng)
     k3_err = phase_parity_k3(device, rng)
     k4_err = phase_parity_k4(device, rng)
+    k5_err = phase_parity_k5(device, rng)
     return {"voxel_scatter": k1_err, "local_corr": k2_err, "fused_convs_pool": k3_err,
-            "coarse_head": k4_err}
+            "coarse_head": k4_err, "update_block": k5_err}
+
+
+def phase_parity_k2_backward(device: torch.device, rng) -> None:
+    """K2 as an autograd.Function on the card: the kernel's forward, the
+    twin's autograd as its backward; the grads against plain autograd
+    through the twin on the same inputs."""
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+
+    shape = (2, 12, 20, 64)
+    xa, ya = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device) for _ in range(2))
+    x, y = xa.clone().requires_grad_(), ya.clone().requires_grad_()
+    out = k2.local_corr(x, y, 4, INDEX_53)
+    require(isinstance(out.grad_fn, k2.LocalCorr._backward_cls), "K2 under grad did not go through LocalCorr")
+    g = torch.randn_like(out)
+    gx, gy = torch.autograd.grad(out, [x, y], g)
+    x2, y2 = xa.clone().requires_grad_(), ya.clone().requires_grad_()
+    px, py = torch.autograd.grad(k2.plain(x2, y2, 4, INDEX_53), [x2, y2], g)
+    torch.cuda.synchronize()
+    err = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
+    say(f"K2 local_corr backward {list(shape)} K=53 (kernel forward, twin's autograd backward): "
+        f"grads max|Δ| {err:.3e} against autograd through the twin (tolerance {K2_GRAD_TOL:g})")
+    require(err <= K2_GRAD_TOL, "K2's grads on the card disagree with the twin's")
+
+
+def k5_block(rng, device):
+    """A BasicUpdateBlock with He-scaled random conv weights and small
+    random biases, in eval mode on ``device``."""
+    from eemflow_tpu_torch.models.raft_core import BasicUpdateBlock
+
+    block = BasicUpdateBlock()
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                w = rng.standard_normal(tuple(m.weight.shape)) * np.sqrt(2.0 / fan_in)
+                m.weight.copy_(torch.from_numpy(w.astype(np.float32)))
+                m.bias.copy_(torch.from_numpy((rng.standard_normal(m.bias.shape[0]) * 0.1).astype(np.float32)))
+    return block.to(device).eval()
+
+
+def k5_inputs(rng, h: int, w: int, device):
+    """NHWC net (tanh), inp (ReLU), correlation features and flow at B=1."""
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    return (
+        t(np.tanh(rng.standard_normal((1, h, w, 128)))),
+        t(np.maximum(rng.standard_normal((1, h, w, 128)), 0)),
+        t(rng.standard_normal((1, h, w, 324))),
+        t(2 * rng.standard_normal((1, h, w, 2))),
+    )
+
+
+def phase_parity_k5(device: torch.device, rng) -> float:
+    """Both K5 entry points against their plain versions on the same
+    inputs: the motion encoder on (corr, flow), the GRU and flow head on
+    (net, inp, the plain motion features)."""
+    from eemflow_tpu_torch.kernels import update_block as k5
+    from eemflow_tpu_torch.ops.update_block import gru_flowhead_plain, make_fused_update, motion_encoder_plain
+
+    block = k5_block(rng, device)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        fused = make_fused_update(block, dtype)
+        tol = K5_TOL[str(dtype).split(".")[1]]
+        for h, w in K5_GRIDS:
+            net, inp, corr, flow = k5_inputs(rng, h, w, device)
+            with torch.inference_mode():
+                motion = k5.update_motion(corr, flow, fused)
+                ref_motion = motion_encoder_plain(corr, flow, fused.motion, dtype)
+                net2, delta = k5.update_gru(net, inp, ref_motion, fused)
+                ref_net, ref_delta = gru_flowhead_plain(net, inp, ref_motion, fused.gru, dtype)
+            torch.cuda.synchronize()
+            for what, got, ref in (("motion", motion, ref_motion), ("net", net2, ref_net),
+                                   ("delta flow", delta, ref_delta)):
+                err, scale = rel_err(got, ref)
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+                say(f"K5 update_block B=1 {h}x{w} {str(dtype)[6:]}: {what} {list(got.shape)} max|Δ| "
+                    f"{err:.3e} (tolerance {tol:g}·{scale:.2f} = {tol * scale:.3e})")
+                require(tuple(got.shape) == tuple(ref.shape) and bool(torch.isfinite(got).all())
+                        and err <= tol * scale, f"K5 disagrees with its plain version ({what}, {h}x{w}, {dtype})")
+    return worst
 
 
 def phase_parity_k3(device: torch.device, rng) -> float:
@@ -490,7 +599,75 @@ def phase_end_to_end(device: torch.device, tmp: str) -> dict:
             f"largest flow {float(ref[-1].abs().max()):.3f}")
         require(bool(torch.isfinite(got[-1]).all()) and err <= FORWARD_TOL,
                 f"{label} forward on the card disagrees with the CPU")
+    launches.update(phase_end_to_end_eraft(device, tmp))
     return launches
+
+
+def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
+    """ERAFT through the CLI on one sample: the module path, then K5 (the
+    slice's main path) in float32 and in bf16, each with its own launch
+    counts; then a 64x96 forward on the card against the CPU."""
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.tools.test_hrem import main as test_hrem
+
+    with open(ERAFT_JSON) as f:
+        golden = json.load(f)
+    root = make_hrem_fixture(os.path.join(tmp, "eraft"), seed=golden["fixture_seed"])
+    aee = {}
+    counts = {}
+    for label, cfg in (
+        ("module path", None),
+        ("fused_update", {"fused_update": True}),
+        ("fused_update bf16", {"fused_update": True, "fused_dtype": "bf16"}),
+    ):
+        extra = []
+        if cfg is not None:
+            path = os.path.join(tmp, f"eraft_{len(aee)}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            extra = ["--config", path]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = test_hrem([
+            "-model", "eraft", "-int", "dt1", "--data_root", root, "--checkpoint", ERAFT_CKPT,
+            "--save_dir", os.path.join(tmp, "out_eraft"), "--max_samples", str(golden["max_samples"]),
+            "--device", str(device), *extra,
+        ])
+        counts[label] = dict(launch_counts)
+        aee[label] = res["mean"]["AEE"]
+        say(f"ERAFT {label} (config {cfg}): AEE {aee[label]:.7f} over {res['indoor_fast']['n_samples']} "
+            f"sample in {time.perf_counter() - t0:.1f} s; launches {counts[label]}")
+    std, fused, bf16 = (aee[k] for k in ("module path", "fused_update", "fused_update bf16"))
+    say(f"ERAFT golden AEE {golden['aee']:.7f}: module path |Δ| {abs(std - golden['aee']):.3e} (tolerance "
+        f"{GOLDEN_TOL:g}); fused_update vs module path |Δ| {abs(fused - std):.3e} (tolerance "
+        f"{ERAFT_FUSED_TOL:g}); bf16 vs float32 fused |Δ| {abs(bf16 - fused):.3e} (tolerance "
+        f"{ERAFT_BF16_TOL:g})")
+    require(abs(std - golden["aee"]) < GOLDEN_TOL, "ERAFT golden AEE drifted")
+    require(abs(fused - std) < ERAFT_FUSED_TOL, "ERAFT's fused_update AEE differs from the module path")
+    require(abs(bf16 - fused) < ERAFT_BF16_TOL, "ERAFT's bf16 fused_update AEE is off")
+    require(counts["module path"]["update_block"] == 0, "the module path launched K5")
+    # one sample, 12 iterations, two entry points each
+    for label in ("fused_update", "fused_update bf16"):
+        require(counts[label]["update_block"] == 24, f"ERAFT {label} did not launch K5 24 times")
+
+    sd = to_state_dict(load_torch_checkpoint(ERAFT_CKPT))
+    rng = np.random.default_rng(3)
+    ev1, ev2 = (rng.standard_normal((1, 64, 96, BINS)).astype(np.float32) for _ in range(2))
+    for label, kw in (("module path", {}), ("fused_update", {"fused_update": True})):
+        model = get_eval_model("eraft", **kw)
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            _, ref = model(torch.from_numpy(ev1), torch.from_numpy(ev2))
+            model.to(device)
+            _, got = model(torch.from_numpy(ev1).to(device), torch.from_numpy(ev2).to(device))
+        err = float((got.cpu() - ref).abs().max())
+        say(f"ERAFT forward 64x96 {label} card vs CPU: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g}), "
+            f"largest flow {float(ref.abs().max()):.3f}")
+        require(bool(torch.isfinite(got).all()) and err <= FORWARD_TOL,
+                f"ERAFT {label} forward on the card disagrees with the CPU")
+    return {"update_block": counts["fused_update"]["update_block"]}
 
 
 def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> list:
@@ -598,6 +775,9 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> l
     say(f"whole eval sample, device voxelize (packed events from the host → K1 ×2 + "
         f"normalize → forward → flow on the host): {sample_ms:.3f} ms ({1e3 / sample_ms:.1f} fps)")
 
+    k5_row = times_k5(device, errs, launches)
+    times_eraft(device)
+
     return [
         {
             "name": "voxel_scatter", "route": "cuda",
@@ -619,7 +799,93 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> l
         },
         k3_row,
         k4_row,
+        k5_row,
     ]
+
+
+def times_k5(device, errs: dict, launches: dict) -> dict:
+    """One K5 pair (the two entry points of one iteration) at ERAFT's
+    720x1280 and 512x960 grids, float32 and bf16: device time (queued),
+    wrapper calls back to back, the plain version, the bound, and the
+    standard path for the same work (``BasicUpdateBlock`` without its mask
+    head: cuDNN convs, TF32 off, and the concatenations)."""
+    from eemflow_tpu_torch.kernels import update_block as k5
+    from eemflow_tpu_torch.ops.update_block import gru_flowhead_plain, make_fused_update, motion_encoder_plain
+    from eemflow_tpu_torch.tools.update_block_bound import update_block_work
+
+    rng = np.random.default_rng(5)
+    block = k5_block(rng, device)
+    row = None
+    with torch.inference_mode():
+        for h, w in K5_GRIDS[:2]:
+            net, inp, corr, flow = k5_inputs(rng, h, w, device)
+            nchw = [t.permute(0, 3, 1, 2).contiguous() for t in (net, inp, corr, flow)]
+            std = cold_queued_ms(lambda: block(*nchw, compute_mask=False), 5, device)
+            std_warm = queued_ms(lambda: block(*nchw, compute_mask=False), reps=5)
+            flops, nbytes = update_block_work(h, w, 1)
+            for dtype, rate in ((torch.float32, PEAK_FP32_FLOP_PER_S), (torch.bfloat16, PEAK_BF16_FLOP_PER_S)):
+                fused = make_fused_update(block, dtype)
+
+                def pair():
+                    return k5.update_gru(net, inp, k5.update_motion(corr, flow, fused), fused)
+
+                def plain():
+                    motion = motion_encoder_plain(corr, flow, fused.motion, dtype)
+                    return gru_flowhead_plain(net, inp, motion, fused.gru, dtype)
+
+                dev = cold_queued_ms(pair, 5, device)
+                warm = queued_ms(pair, reps=5)
+                wrapper = cuda_ms(pair, reps=5)
+                plain_ms = cuda_ms(plain, reps=5)
+                b_ms, b_by = bound_ms(nbytes, flops, rate)
+                kind = str(dtype)[6:]
+                say(f"K5 update_block pair B=1 {h}x{w} {kind}: {dev:.4f} ms on the device after an L2 "
+                    f"flush ({warm:.4f} warm, queued), {wrapper:.4f} ms per wrapper pair back to back "
+                    f"({flops / dev / 1e9:.1f} TFLOP/s); bound {b_ms:.4f} ms ({b_by} at the {kind} "
+                    f"peak: {flops} FLOP, {nbytes} B); plain version {plain_ms:.4f} ms; standard path "
+                    f"(BasicUpdateBlock without the mask, cuDNN float32) {std:.4f} ms on the device "
+                    f"after an L2 flush ({std_warm:.4f} warm)")
+                if (h, w) == K5_GRIDS[0] and dtype == torch.float32:
+                    row = {
+                        "name": "update_block", "route": "cuda",
+                        "source": "eemflow_tpu_torch/kernels/csrc/update_block.cu",
+                        "replaces": "eemflow_tpu/ops/pallas/update_block.py:236",
+                        "launches": launches["update_block"], "max_abs_err": errs["update_block"],
+                        "ms": dev, "warm_ms": warm, "wrapper_ms": wrapper, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "standard_ms": std,
+                    }
+    return row
+
+
+def times_eraft(device) -> None:
+    """The ERAFT eval forward (golden weights, 12 iterations, the mask head
+    once) at 720x1280 and 512x960, B=1: module path against K5."""
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    sd = to_state_dict(load_torch_checkpoint(ERAFT_CKPT))
+    models = {}
+    for label, kw in (("module path", {}), ("fused_update", {"fused_update": True}),
+                      ("fused_update bf16", {"fused_update": True, "fused_dtype": "bf16"})):
+        models[label] = get_eval_model("eraft", **kw)
+        models[label].load_state_dict(sd)
+        models[label].to(device)
+    for h, w in ((720, 1280), (512, 960)):
+        x1, x2 = (torch.randn(1, h, w, BINS, device=device) for _ in range(2))
+        flows = {}
+        for label, m in models.items():
+            def forward(m=m):
+                with torch.inference_mode():
+                    return m(x1, x2)[1][-1]
+
+            flows[label] = flow = forward()
+            require(tuple(flow.shape) == (1, h, w, 2) and bool(torch.isfinite(flow).all()),
+                    f"ERAFT {h}x{w} {label} forward is not finite or has the wrong shape")
+            ms = cuda_ms(forward, reps=5, warmup=2)
+            say(f"ERAFT forward {h}x{w} B=1, {label}: {ms:.3f} ms per call back to back "
+                f"({1e3 / ms:.1f} fps)")
+        err = float((flows["fused_update"] - flows["module path"]).abs().max())
+        say(f"ERAFT {h}x{w} fused_update vs module path forward: max|Δ| {err:.3e}")
 
 
 def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):

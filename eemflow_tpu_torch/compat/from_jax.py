@@ -1,4 +1,4 @@
-"""Carry JAX EEMFlow params across to the port.
+"""Carry JAX EEMFlow and ERAFT params across to the port.
 
 The inverse of ``torch_state_dict_to_flax`` with ``eemflow_alias``
 (``eemflow_tpu/compat/torch_loader.py:57-133``): a nested dict of numpy
@@ -52,4 +52,47 @@ def eemflow_state_dict_from_jax(
             raise ValueError(f"unexpected EEMFlow param {'.'.join(path)}")
         sd[".".join(path)] = torch.from_numpy(np.ascontiguousarray(a))
     sd["index"] = torch.tensor(list(indices), dtype=torch.long)
+    return sd
+
+
+def _eraft_torch_path(path) -> str:
+    """A flax module path of the JAX ERAFT → the port's attribute path
+    (the inverse of ``eraft_alias``): ``layerX_N`` → ``layerX.N``,
+    ``downsample_0`` → ``downsample.0``, ``mask_N`` → ``mask.N``."""
+    out = []
+    for p in path:
+        head, _, idx = p.rpartition("_")
+        if idx.isdigit() and (head.startswith("layer") or head in ("downsample", "mask")):
+            out += [head, idx]
+        else:
+            out.append(p)
+    return ".".join(out)
+
+
+def eraft_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ERAFT variables (``{"params": ..., "batch_stats": ...}``) → the
+    port's ``state_dict``: HWIO kernels → OIHW ``weight``, norm ``scale`` →
+    ``weight``, ``batch_stats`` mean/var → ``running_mean``/``running_var``
+    with ``num_batches_tracked`` 0; a strided block's ``norm3`` is written
+    under both of its torch spellings, ``norm3`` and ``downsample.1``."""
+    sd: Dict[str, torch.Tensor] = {}
+    leaves = {"kernel": "weight", "scale": "weight", "bias": "bias",
+              "mean": "running_mean", "var": "running_var"}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(coll, {})):
+            if path[-1] not in leaves:
+                raise ValueError(f"unexpected ERAFT {coll} leaf {'/'.join(path)}")
+            a = np.array(leaf, np.float32)
+            if path[-1] == "kernel":
+                if a.ndim != 4:
+                    raise ValueError(f"{'/'.join(path)}: expected an HWIO kernel, got {a.shape}")
+                a = a.transpose(3, 2, 0, 1)
+            mod = _eraft_torch_path(path[:-1])
+            names = [mod]
+            if path[-2] == "norm3":
+                names.append(mod[: -len("norm3")] + "downsample.1")
+            for m in names:
+                sd[f"{m}.{leaves[path[-1]]}"] = torch.from_numpy(np.ascontiguousarray(a))
+                if path[-1] == "mean":
+                    sd[f"{m}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd

@@ -1,4 +1,4 @@
-"""Evaluation engine (counterpart of ``eemflow_tpu/eval/runner.py:32-263``;
+"""Evaluation engine (counterpart of ``eemflow_tpu/eval/runner.py:32-272``;
 reference ``test_mvsec.py`` ``Test`` + ``test_multi_sequence:538-671``).
 
 Per-sequence loop over a dataset with ``change_test_sequence``;
@@ -102,13 +102,18 @@ class Tester:
         """Single sample dict → flow [H, W, 2]."""
         return self._dispatch(sample)[0].cpu().numpy()
 
-    def test_sequence(self, dataset, batch_size: int = 1) -> Dict[str, float]:
-        """Evaluate the dataset's current sequence; returns aggregates."""
+    def test_sequence(
+        self, dataset, stride: int = 1, max_samples: Optional[int] = None, batch_size: int = 1,
+    ) -> Dict[str, float]:
+        """Evaluate the dataset's current sequence (every ``stride``-th
+        sample, at most ``max_samples`` of them); returns aggregates."""
         AEE_sum = pct1_sum = pct3_sum = 0.0
         iters = 0
         rows = []
         pending = None  # (samples, device flow)
-        indices = range(len(dataset))
+        indices = list(range(0, len(dataset), stride))
+        if max_samples is not None:
+            indices = indices[:max_samples]
 
         def consume(samples, fut):
             nonlocal AEE_sum, pct1_sum, pct3_sum, iters
@@ -157,6 +162,8 @@ class Tester:
         self,
         dataset,
         sequence_list: Sequence[str],
+        stride: int = 1,
+        max_samples: Optional[int] = None,
         batch_size: int = 1,
     ) -> Dict[str, Dict[str, float]]:
         """Per-sequence eval + mean of per-sequence AEE (the HREM protocol)."""
@@ -164,7 +171,8 @@ class Tester:
         for seq in sequence_list:
             dataset.change_test_sequence(seq)
             t0 = time.time()
-            res = self.test_sequence(dataset, batch_size=batch_size)
+            res = self.test_sequence(dataset, stride=stride, max_samples=max_samples,
+                                     batch_size=batch_size)
             self._log(
                 f"[{seq}] AEE {res['AEE']:.6f}  1px-out {res['pct1_outlier']:.6f}  "
                 f"3px-out {res['pct3_outlier']:.6f}  ({res['n_samples']} samples, "

@@ -23,7 +23,7 @@ from typing import List, Optional, Tuple
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
-SOURCES = ("voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu")
+SOURCES = ("voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu", "update_block.cu")
 ARCH = "sm_90a"
 COMPILE_FLAGS = (
     "-gencode", f"arch=compute_90a,code={ARCH}",
@@ -123,8 +123,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_convs_launch.restype = i
     lib.coarse_head_launch.argtypes = [p, p]
     lib.coarse_head_launch.restype = i
+    lib.update_block_motion_launch.argtypes = [p, p]
+    lib.update_block_motion_launch.restype = i
+    lib.update_block_gru_launch.argtypes = [p, p]
+    lib.update_block_gru_launch.restype = i
     lib.fused_convs_args_size.restype = i
     lib.coarse_head_args_size.restype = i
+    lib.update_block_args_size.restype = i
     lib.eemflow_error_string.argtypes = [i]
     lib.eemflow_error_string.restype = ctypes.c_char_p
 

@@ -16,7 +16,7 @@ from typing import Dict, Mapping, Sequence
 import torch
 import torch.nn.functional as F
 
-from eemflow_tpu_torch.kernels import build, launch_counts
+from eemflow_tpu_torch.kernels import build, launch_counts, refuse_grad
 from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head_plain, conv_names
 
 plain = coarse_head_plain
@@ -114,6 +114,7 @@ def coarse_head_fused(
         return plain(f1_levels, f2_levels, *weights.plain(f0.device), indices, max_displacement)
     if f0.device.type != "cuda":
         raise ValueError(f"coarse_head: unsupported device {f0.device}")
+    refuse_grad("coarse_head", *f1_levels, *f2_levels, *weights.params.values())
     packed = weights.kernel(f0.device)
     if len(f1_levels) != NLEV or len(f2_levels) != NLEV:
         raise ValueError("coarse_head: three levels per frame")

@@ -16,7 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from eemflow_tpu_torch.kernels import build, launch_counts
+from eemflow_tpu_torch.kernels import build, launch_counts, refuse_grad
 from eemflow_tpu_torch.ops.fused_convs import check_args, fused_convs_pool_plain
 
 plain = fused_convs_pool_plain
@@ -174,6 +174,7 @@ def fused_convs(
         return plain(x, weights, biases, pool, compute_dtype, emit_full, relus, concat)
     if x.device.type != "cuda":
         raise ValueError(f"fused_convs_pool: unsupported device {x.device}")
+    refuse_grad("fused_convs_pool", x, *weights, *biases)
     if x.dtype != torch.float32:
         raise ValueError("fused_convs_pool: float32 input only")
     if compute_dtype not in (torch.float32, torch.bfloat16):

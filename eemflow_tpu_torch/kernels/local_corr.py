@@ -2,7 +2,11 @@
 its plain twin on the CPU.
 
 Replaces ``eemflow_tpu/ops/pallas/local_corr.py`` ``local_correlation_pallas``
-(forward only; the training slice wraps it in an ``autograd.Function``).
+and its custom VJP.  When a gradient is wanted, the call goes through
+``LocalCorr``, an ``autograd.Function`` whose forward is the kernel on the
+card (the twin on the CPU) and whose backward is the twin's autograd,
+recomputed from the saved ``x`` and ``y`` — as the JAX ``_bwd`` is the VJP
+of the XLA formulation, not a kernel.
 """
 
 from __future__ import annotations
@@ -37,7 +41,45 @@ def local_corr(
     max_displacement: int = 4,
     indices: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """NHWC x, y [B, H, W, C] float32 → [B, H, W, K] float32."""
+    """NHWC x, y [B, H, W, C] float32 → [B, H, W, K] float32, differentiable
+    in x and y."""
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        wanted = None if indices is None else tuple(int(i) for i in indices)
+        return LocalCorr.apply(x, y, max_displacement, wanted)
+    return _forward(x, y, max_displacement, indices)
+
+
+class LocalCorr(torch.autograd.Function):
+    """K2 with the twin's backward (the JAX custom VJP's counterpart)."""
+
+    @staticmethod
+    def forward(ctx, x, y, max_displacement, indices):
+        ctx.save_for_backward(x, y)
+        ctx.max_displacement = max_displacement
+        ctx.indices = indices
+        return _forward(x, y, max_displacement, indices)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, y = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            yd = y.detach().requires_grad_(ctx.needs_input_grad[1])
+            out = plain(xd, yd, ctx.max_displacement, ctx.indices)
+            wrt = [t for t in (xd, yd) if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, grad))
+        gx = next(grads) if ctx.needs_input_grad[0] else None
+        gy = next(grads) if ctx.needs_input_grad[1] else None
+        return gx, gy, None, None
+
+
+def _forward(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    max_displacement: int,
+    indices: Optional[Sequence[int]],
+) -> torch.Tensor:
+    """The twin on the CPU, the kernel on the card; no autograd."""
     if x.device.type == "cpu":
         return plain(x, y, max_displacement, indices)
     if x.device.type != "cuda":

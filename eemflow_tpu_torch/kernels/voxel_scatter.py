@@ -11,7 +11,7 @@ import ctypes
 import torch
 
 from eemflow_tpu_torch.events.voxel import voxel_scatter_plain
-from eemflow_tpu_torch.kernels import build, launch_counts
+from eemflow_tpu_torch.kernels import build, launch_counts, refuse_grad
 
 plain = voxel_scatter_plain
 
@@ -25,6 +25,7 @@ def voxel_scatter(
         return plain(events, n_valid, num_bins, height, width)
     if events.device.type != "cuda":
         raise ValueError(f"voxel_scatter: unsupported device {events.device}")
+    refuse_grad("voxel_scatter", events)
     if events.dim() != 3 or events.shape[-1] != 4 or events.dtype != torch.float32:
         raise ValueError(f"voxel_scatter: events must be [B, N, 4] float32, got {tuple(events.shape)} {events.dtype}")
     B, N, _ = events.shape

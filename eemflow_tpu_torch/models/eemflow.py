@@ -30,8 +30,12 @@ rounds the conv operands to bf16), the stride-2 convs stay cuDNN convs;
 ``fast_head`` runs the whole coarse stage as one call of kernel K4
 (``ops/coarse_head.py``; ``fast_head_impl="plain"`` runs its PyTorch twin
 instead, the measurement control).  ``train=True`` takes the standard
-path.  The packed weights of both are kept on the model and dropped when
-a state dict is loaded or the model is moved.
+path; K4's weights are packed detached, so ``fast_head`` refuses to run
+under grad while a parameter requires it.  The packed weights are kept on
+the model and dropped when it is moved: K3's chains in a ``PackCache``,
+repacked when a parameter they were made from changes in place (its
+version counter) or is replaced; K4's in one ``HeadWeights``, which
+repacks itself after an in-place edit.
 """
 
 from __future__ import annotations
@@ -42,10 +46,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from eemflow_tpu_torch.kernels import COMPUTE_DTYPES
 from eemflow_tpu_torch.kernels.fused_convs import fused_convs, pack_chain
 from eemflow_tpu_torch.models.layers import ConvRelu, channel_shuffle, conv2d
 from eemflow_tpu_torch.ops.coarse_head import IMPLS, HeadWeights, coarse_head
 from eemflow_tpu_torch.ops.correlation import local_correlation
+from eemflow_tpu_torch.ops.pack_cache import PackCache
 from eemflow_tpu_torch.ops.pad import InputPadder
 from eemflow_tpu_torch.ops.upsample import upsample_flow_to
 
@@ -77,7 +83,6 @@ INDEX_53 = (
 POOLS = (32, 16, 8)
 # the stride-1 convs of each pyramid level (what ``fast_pyramid`` fuses)
 LEVEL_CHAINS = (("pconv1_2",), ("pconv2_2", "pconv2_3"), ("pconv3_2", "pconv3_3"))
-PYRAMID_DTYPES = {"float32": torch.float32, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
 class Decoder(nn.Module):
@@ -127,8 +132,8 @@ class EEMFlow(nn.Module):
         fast_head_impl: str = "kernel",
     ):
         super().__init__()
-        if fast_pyramid_dtype not in PYRAMID_DTYPES:
-            raise ValueError(f"fast_pyramid_dtype must be one of {sorted(PYRAMID_DTYPES)}")
+        if fast_pyramid_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"fast_pyramid_dtype must be one of {sorted(COMPUTE_DTYPES)}")
         if fast_head_impl not in IMPLS:
             raise ValueError(f"fast_head_impl must be one of {IMPLS}")
         self.groups = groups
@@ -141,9 +146,8 @@ class EEMFlow(nn.Module):
         self.fast_pyramid_dtype = fast_pyramid_dtype
         self.fast_head = fast_head
         self.fast_head_impl = fast_head_impl
-        # packed weights of the fused modes; stale once the parameters change
-        self._fast_cache: dict = {}
-        self.register_load_state_dict_post_hook(lambda module, _: module._fast_cache.clear())
+        # packed weights of the fused modes, following the parameters
+        self._fast_cache = PackCache()
 
         self.pconv1_1 = ConvRelu(n_first_channels, 16, stride=2)
         self.pconv1_2 = ConvRelu(16, 16)
@@ -181,19 +185,18 @@ class EEMFlow(nn.Module):
         convs + pool as one K3 call, reading the same parameters as
         ``pyramid``.  Only the pooled grids come out: the last level's full
         output feeds nothing."""
-        dtype = PYRAMID_DTYPES[self.fast_pyramid_dtype]
+        dtype = COMPUTE_DTYPES[self.fast_pyramid_dtype]
         chains = [
             ([getattr(self, n)[0].weight for n in names], [getattr(self, n)[0].bias for n in names])
             for names in LEVEL_CHAINS
         ]
         packs = [None] * len(chains)
         if x.device.type == "cuda":
-            key = ("pyramid", x.device, dtype)
-            if key not in self._fast_cache:
-                self._fast_cache[key] = [
-                    pack_chain(ws, bs, dtype == torch.bfloat16, x.device) for ws, bs in chains
-                ]
-            packs = self._fast_cache[key]
+            packs = self._fast_cache.get(
+                ("pyramid", x.device, dtype),
+                [t for ws, bs in chains for t in ws + bs],
+                lambda: [pack_chain(ws, bs, dtype == torch.bfloat16, x.device) for ws, bs in chains],
+            )
         pooled = []
         f = x
         for lvl, (stem, pool) in enumerate(zip((self.pconv1_1, self.pconv2_1, self.pconv3_1), POOLS)):
@@ -205,10 +208,10 @@ class EEMFlow(nn.Module):
         return tuple(pooled)
 
     def _head_weights(self) -> HeadWeights:
-        hw = self._fast_cache.get("head")
-        if hw is None:
-            hw = self._fast_cache["head"] = HeadWeights(dict(self.named_parameters()), self.groups)
-        return hw
+        # built once per placement: HeadWeights repacks itself after an edit
+        return self._fast_cache.get(
+            "head", (), lambda: HeadWeights(dict(self.named_parameters()), self.groups)
+        )
 
     def _corr(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """NCHW pooled features → NCHW correlation through the NHWC op."""

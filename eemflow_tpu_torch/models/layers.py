@@ -1,4 +1,4 @@
-"""Shared NN building blocks (counterpart of ``eemflow_tpu/models/layers.py:25-121``).
+"""Shared NN building blocks (counterpart of ``eemflow_tpu/models/layers.py:25-132``).
 
 NCHW ``nn.Module``s named as the reference names them: a conv+LeakyReLU
 block is ``nn.Sequential(conv, LeakyReLU)``, so its conv's parameters are
@@ -64,3 +64,12 @@ def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     package's NHWC ``reshape(.., g, C/g) → swap`` form."""
     B, C, H, W = x.shape
     return x.view(B, groups, C // groups, H, W).transpose(1, 2).reshape(B, C, H, W)
+
+
+class InstanceNorm(nn.InstanceNorm2d):
+    """torch ``InstanceNorm2d`` with its defaults — no affine, eps 1e-5, the
+    biased variance over H, W per sample and channel, no running stats —
+    which is what the JAX ``InstanceNorm`` (``layers.py:123-132``) rebuilt."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels)

@@ -14,7 +14,9 @@ convs made dense block-diagonal, each channel shuffle folded into the
 next conv's input channels).  ``coarse_head_plain`` is the twin of
 ``_sample_math`` (the JAX ``impl="xla"``) on that layout.  The kernel K4
 (``kernels/coarse_head.py``) keeps its own layout; ``HeadWeights`` packs
-the parameters once per layout and device.
+the parameters once per layout and device.  Both packs are detached, so
+the fused head refuses, under grad, a parameter that requires grad, on
+either device.
 
 ``coarse_head(..., impl="kernel")`` sends CPU tensors to the twin and
 CUDA tensors to K4; ``impl="plain"`` runs the twin on any device (the
@@ -29,7 +31,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from eemflow_tpu_torch.kernels import refuse_grad
 from eemflow_tpu_torch.ops.correlation import local_correlation_plain
+from eemflow_tpu_torch.ops.pack_cache import PackCache
 
 # fixed per-level weight ordering (the JAX package's _LEVEL_KEYS)
 LEVEL_KEYS = (
@@ -166,30 +170,31 @@ def coarse_head_plain(
 
 class HeadWeights:
     """One model's coarse-stage parameters, packed once per layout (the
-    twin's, the kernel's) and device.  Holds the tensors it was given: a
-    caller that changes them builds a new one."""
+    twin's, the kernel's) and device.  Holds the tensors it was given and
+    repacks when one of them changes in place (``PackCache``); a parameter
+    replaced by another tensor is not seen: make a new ``HeadWeights``."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], groups: int):
         keep = ("rconv_", "decoder_", "out_conv.")
-        self.params = {k: v.detach() for k, v in params.items() if k.startswith(keep)}
+        self.params = {k: v for k, v in params.items() if k.startswith(keep)}
         self.groups = groups
-        self._packs: Dict[Tuple[str, torch.device], object] = {}
+        self._packs = PackCache()
 
     def plain(self, device: torch.device):
-        key = ("plain", torch.device(device))
-        if key not in self._packs:
+        def make():
             levels, wout, bout = pack_coarse_head_weights(self.params, self.groups)
             to = lambda t: t.to(device)
-            self._packs[key] = ([{k: to(v) for k, v in d.items()} for d in levels], to(wout), to(bout))
-        return self._packs[key]
+            return [{k: to(v) for k, v in d.items()} for d in levels], to(wout), to(bout)
+
+        return self._packs.get(("plain", torch.device(device)), self.params.values(), make)
 
     def kernel(self, device: torch.device):
         from eemflow_tpu_torch.kernels.coarse_head import pack_kernel_weights
 
-        key = ("kernel", torch.device(device))
-        if key not in self._packs:
-            self._packs[key] = pack_kernel_weights(self.params, self.groups, device)
-        return self._packs[key]
+        return self._packs.get(
+            ("kernel", torch.device(device)), self.params.values(),
+            lambda: pack_kernel_weights(self.params, self.groups, device),
+        )
 
 
 def coarse_head(
@@ -210,6 +215,7 @@ def coarse_head(
     hw = params if isinstance(params, HeadWeights) else HeadWeights(params, groups)
     if hw.groups != groups:
         raise ValueError(f"coarse_head: weights packed for groups={hw.groups}, called with {groups}")
+    refuse_grad("coarse_head", *hw.params.values())
     indices = tuple(int(i) for i in indices)
     dev = f1_levels[0].device
     if impl == "plain":

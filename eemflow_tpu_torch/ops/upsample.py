@@ -1,5 +1,6 @@
-"""Bilinear resizing and EEMFlow's flow upsampler (counterpart of
-``eemflow_tpu/ops/upsample.py:25-63``), NHWC in and out.
+"""Bilinear resizing, EEMFlow's flow upsampler and RAFT's convex upsampler
+(counterpart of ``eemflow_tpu/ops/upsample.py:25-63, 84-109``), NHWC in
+and out.
 
 align_corners=False is torch ``F.interpolate``'s own convention
 (src = (dst+0.5)·in/out − 0.5, clamped at 0), which the JAX package
@@ -28,3 +29,18 @@ def upsample_flow_to(flow: torch.Tensor, size) -> torch.Tensor:
     """EEMFlow final upsampler: plain bilinear (align_corners=False), flow
     values NOT rescaled (reference ``EEMFlow.py:118-120``)."""
     return resize_bilinear(flow, size, align_corners=False)
+
+
+def convex_upsample_flow(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """RAFT's convex-combination upsampler (reference ``model/eraft.py:83-94``).
+
+    flow NHWC [B, h, w, 2]; mask NHWC [B, h, w, 9·factor²] in the torch
+    channel layout c = k·factor² + iy·factor + ix (k the 3×3 neighbour,
+    ky-major).  A softmax over the 9 neighbours weighs ``factor · flow``
+    around each cell.  Returns [B, h·factor, w·factor, 2]."""
+    B, h, w, _ = flow.shape
+    f = factor
+    m = torch.softmax(mask.permute(0, 3, 1, 2).reshape(B, 1, 9, f, f, h, w), dim=2)
+    nb = F.unfold(f * flow.permute(0, 3, 1, 2), [3, 3], padding=1).reshape(B, 2, 9, 1, 1, h, w)
+    up = (m * nb).sum(dim=2)  # [B, 2, f(iy), f(ix), h, w]
+    return up.permute(0, 4, 2, 5, 3, 1).reshape(B, h * f, w * f, 2)

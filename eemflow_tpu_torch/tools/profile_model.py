@@ -1,6 +1,7 @@
-"""Profile the port's EEMFlow eval step with ``torch.profiler`` (counterpart
-of ``tools/profile_model.py``): device time by kernel, the device's busy
-share over the profiled window, and host milliseconds per call.
+"""Profile the port's eval step (EEMFlow or ERAFT) with ``torch.profiler``
+(counterpart of ``tools/profile_model.py``): device time by kernel, the
+device's busy share over the profiled window, and host milliseconds per
+call.
 
 Profiles either the forward on voxel grids already on the device, or, with
 ``--events N``, one whole device-voxelize eval sample (``Tester.run_sample``:
@@ -12,6 +13,8 @@ trace to ``--logdir`` and prints one JSON line.
 Usage:
   python -m eemflow_tpu_torch.tools.profile_model --size 720 1280 -bs 1 [--fast] \
       [--fast_head] [--fast_pyramid] [--events 30000]
+  python -m eemflow_tpu_torch.tools.profile_model -model eraft --size 720 1280 -bs 1 \
+      [--fused_update | --fused_update_bf16] [--corr_fast]
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from torch.profiler import ProfilerActivity, profile
 from eemflow_tpu_torch.data.device_input import make_device_preprocess
 from eemflow_tpu_torch.device import resolve_device
 from eemflow_tpu_torch.eval.runner import Tester
-from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
+from eemflow_tpu_torch.models.registry import get_eval_model
+from eemflow_tpu_torch.tools.time_eval import add_mode_flags, mode_kwargs
 
 BUCKET = 1 << 18
 BINS = 5
@@ -38,19 +42,14 @@ TOP = 12  # kernels listed, by device time
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Profile the EEMFlow eval step (PyTorch port)")
+    p = argparse.ArgumentParser(description="Profile the eval step (PyTorch port)")
     p.add_argument("--size", type=int, nargs=2, default=[720, 1280])
     p.add_argument("-bs", "--batch_size", type=int, default=1)
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--events", type=int, default=0,
                    help="profile a whole device-voxelize eval sample with this "
                    "many events per frame (0: the forward alone)")
-    p.add_argument("--fast", action="store_true",
-                   help="every parity-safe serving mode of the family")
-    p.add_argument("--fast_head", action="store_true",
-                   help="EEMFlow's coarse stage as one kernel (K4)")
-    p.add_argument("--fast_pyramid", action="store_true",
-                   help="each pyramid level's stride-1 convs + pool as one kernel (K3)")
+    add_mode_flags(p)
     p.add_argument("--logdir", default="runs/profile_torch")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
@@ -72,10 +71,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(0)
     h, w = args.size
-    model_kwargs = {k: True for k in ("fast_head", "fast_pyramid") if getattr(args, k)}
-    if args.fast:
-        model_kwargs.update(fast_eval_kwargs("eemflow"))
-    model = get_eval_model("eemflow", **model_kwargs)
+    model_kwargs = mode_kwargs(args)
+    model = get_eval_model(args.model, **model_kwargs)
     rng = np.random.default_rng(0)
     if args.events:
         if args.batch_size != 1:
@@ -122,6 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     result = {
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "model": args.model, "modes": model_kwargs,
         "size": [h, w], "batch": args.batch_size, "fast": args.fast,
         "fast_head": args.fast_head, "fast_pyramid": args.fast_pyramid, "events": args.events,
         "reps": args.reps, "ms_per_call": wall_ms / args.reps,

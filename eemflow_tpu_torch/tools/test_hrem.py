@@ -3,12 +3,18 @@ reference ``test_EEMFlow_HREM.py``).
 
 Loads a released PyTorch ``.pth.tar`` and runs the per-sequence HREM
 protocol ({indoor,outdoor}×{fast,slow}, mean of per-sequence AEE) on the
-card, or on the CPU with ``--device cpu``.
+card, or on the CPU with ``--device cpu``.  ``--config`` names a JSON file
+whose top-level keys that are model constructor fields go to the model
+(``{"fused_update": true}`` runs ERAFT's update block as kernel K5).  A
+checkpoint's correlation ``index`` buffer is dropped for the model's own,
+as the JAX CLI does; one line says so when the two differed.
 
 Usage:
   python -m eemflow_tpu_torch.tools.test_hrem -model eemflow -int dt1 \
       --data_root dataset/HREM --checkpoint EEMFlow_HREM_dt1.pth.tar \
       [--device_voxelize] [--eval_batch 2] [--fast_head] [--fast_pyramid] [--device cpu]
+  python -m eemflow_tpu_torch.tools.test_hrem -model eraft -int dt1 \
+      --checkpoint eraft.pth.tar --max_samples 1 [--config cfg.json] [--stride 2]
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from eemflow_tpu_torch.data.hrem import HREM_SEQUENCES, HREMEventFlow
 from eemflow_tpu_torch.device import resolve_device
 from eemflow_tpu_torch.eval.runner import Tester
 from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
+from eemflow_tpu_torch.utils.config import load_config, model_kwargs_from_config
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,7 +41,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_root", default="dataset/HREM")
     p.add_argument("--checkpoint", required=True, help="released .pth/.pth.tar checkpoint")
     p.add_argument("--save_dir", default="runs/hrem_eval")
+    p.add_argument("--stride", type=int, default=1, help="evaluate every stride-th sample")
+    p.add_argument("--max_samples", type=int, default=None,
+                   help="at most this many samples per sequence")
     p.add_argument("--save_csv", action="store_true")
+    p.add_argument("--config", default=None,
+                   help="optional config JSON carrying model hyperparameters")
     p.add_argument("--device_voxelize", action="store_true",
                    help="voxelize raw events on the device (kernel K1)")
     p.add_argument("--bucket_size", type=int, default=1 << 18)
@@ -63,15 +75,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    model_kwargs = {k: True for k in ("fast_head", "fast_pyramid") if getattr(args, k)}
+    cfg = load_config(args.config) if args.config else {}
+    model_kwargs = model_kwargs_from_config(args.model, cfg)
+    model_kwargs.update({k: True for k in ("fast_head", "fast_pyramid") if getattr(args, k)})
     if args.fast:
         model_kwargs.update(fast_eval_kwargs(args.model))
     model = get_eval_model(args.model, **model_kwargs)
     if not args.checkpoint.endswith((".pth", ".pth.tar", ".pt")):
         raise SystemExit("--checkpoint must be a PyTorch .pth/.pth.tar/.pt file")
     sd = to_state_dict(load_torch_checkpoint(args.checkpoint))
-    if "index" in sd and tuple(sd["index"].tolist()) != model.corr_indices:
-        raise SystemExit("checkpoint correlation index differs from the model's corr_indices")
+    own = model.state_dict().get("index")
+    if "index" in sd:
+        # as the JAX CLI: the checkpoint's index goes, the model keeps its own
+        index = sd.pop("index")
+        if own is not None and not torch.equal(index, own):
+            print(f"checkpoint correlation index ({index.numel()} entries) differs from the "
+                  f"model's corr_indices ({own.numel()}); using the model's", flush=True)
+    if own is not None:
+        sd["index"] = own
     model.load_state_dict(sd)
 
     dataset = HREMEventFlow(
@@ -88,7 +109,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
                     preprocess=preprocess)
     seqs = [s for s in HREM_SEQUENCES if s in dataset.nori_list]
     return tester.test_multi_sequence(
-        dataset, seqs or HREM_SEQUENCES, batch_size=args.eval_batch
+        dataset, seqs or HREM_SEQUENCES, stride=args.stride, max_samples=args.max_samples,
+        batch_size=args.eval_batch,
     )
 
 

@@ -1,6 +1,6 @@
-"""Time the EEMFlow eval forward of the port (counterpart of
-``tools/time_eval.py`` for ``-model eemflow``): the user-facing A/B
-between the standard and the fused modes.
+"""Time the eval forward of the port (counterpart of ``tools/time_eval.py``
+for ``-model eemflow`` and ``-model eraft``): the user-facing A/B between
+the standard and the fused modes.
 
 On the card the forward is timed with CUDA events over ``--reps``
 back-to-back calls after a warm-up; on the CPU (``--device cpu``) with the
@@ -11,6 +11,8 @@ images per second beside the device's name, and returns them.
 Usage:
   python -m eemflow_tpu_torch.tools.time_eval --size 720 1280 -bs 1 \\
       [--fast_head [--fast_head_impl plain]] [--fast_pyramid | --fast_pyramid_bf16] [--fast]
+  python -m eemflow_tpu_torch.tools.time_eval -model eraft --size 720 1280 -bs 1 \\
+      [--fused_update | --fused_update_bf16] [--corr_fast]
 """
 
 from __future__ import annotations
@@ -26,12 +28,9 @@ from eemflow_tpu_torch.device import resolve_device
 from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Time the EEMFlow eval forward (PyTorch port)")
-    p.add_argument("--size", type=int, nargs=2, default=[720, 1280])
-    p.add_argument("-bs", "--batch_size", type=int, default=2)
-    p.add_argument("--bins", type=int, default=5)
-    p.add_argument("--reps", type=int, default=20)
+def add_mode_flags(p: argparse.ArgumentParser) -> None:
+    """The model and its eval modes, as the JAX tool spells them."""
+    p.add_argument("-model", default="eemflow", choices=["eemflow", "eraft"])
     p.add_argument("--fast_head", action="store_true",
                    help="the whole coarse stage as one kernel (K4; f32 math, parity to "
                    "fp noise)")
@@ -45,6 +44,44 @@ def build_parser() -> argparse.ArgumentParser:
                    "for checkpoint-parity evaluation)")
     p.add_argument("--fast", action="store_true",
                    help="every parity-safe serving mode of the family (registry.fast_eval_kwargs)")
+    p.add_argument("--corr_fast", action="store_true",
+                   help="ERAFT: bf16-stored correlation volumes and bf16 tap lookup, f32 "
+                   "accumulation (not for checkpoint-parity evaluation)")
+    p.add_argument("--fused_update", action="store_true",
+                   help="ERAFT: the update block without its mask head as kernel K5 (f32 "
+                   "math, parity to fp noise)")
+    p.add_argument("--fused_update_bf16", action="store_true",
+                   help="ERAFT: K5 with bf16 conv operands (f32 accumulation; not "
+                   "checkpoint-parity)")
+
+
+def mode_kwargs(args) -> dict:
+    """Constructor kwargs of the modes the flags ask for."""
+    extra = {}
+    if args.fast_head:
+        extra.update(fast_head=True, fast_head_impl=args.fast_head_impl)
+    if args.fast_pyramid or args.fast_pyramid_bf16:
+        extra["fast_pyramid"] = True
+        if args.fast_pyramid_bf16:
+            extra["fast_pyramid_dtype"] = "bf16"
+    if args.corr_fast:
+        extra["corr_fast"] = True
+    if args.fused_update or args.fused_update_bf16:
+        extra["fused_update"] = True
+        if args.fused_update_bf16:
+            extra["fused_dtype"] = "bf16"
+    if args.fast:
+        extra.update(fast_eval_kwargs(args.model))
+    return extra
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Time the eval forward (PyTorch port)")
+    p.add_argument("--size", type=int, nargs=2, default=[720, 1280])
+    p.add_argument("-bs", "--batch_size", type=int, default=2)
+    p.add_argument("--bins", type=int, default=5)
+    p.add_argument("--reps", type=int, default=20)
+    add_mode_flags(p)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
 
@@ -54,17 +91,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = resolve_device(args.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    extra = {}
-    if args.fast_head:
-        extra.update(fast_head=True, fast_head_impl=args.fast_head_impl)
-    if args.fast_pyramid or args.fast_pyramid_bf16:
-        extra["fast_pyramid"] = True
-        if args.fast_pyramid_bf16:
-            extra["fast_pyramid_dtype"] = "bf16"
-    if args.fast:
-        extra.update(fast_eval_kwargs("eemflow"))
+    extra = mode_kwargs(args)
     torch.manual_seed(0)
-    model = get_eval_model("eemflow", n_first_channels=args.bins, **extra).to(device)
+    model = get_eval_model(args.model, n_first_channels=args.bins, **extra).to(device)
     h, w = args.size
     rng = np.random.default_rng(0)
     x1, x2 = (
@@ -98,11 +127,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     per_img = ms / args.batch_size
     modes = ",".join(f"{k}={v}" for k, v in sorted(extra.items())) or "standard"
     print(
-        f"eemflow @ {h}x{w} b={args.batch_size} ({modes}): {per_img:.3f} ms/img, "
+        f"{args.model} @ {h}x{w} b={args.batch_size} ({modes}): {per_img:.3f} ms/img, "
         f"{1e3 / per_img:.1f} fps ({name})",
         flush=True,
     )
-    return {"device": name, "modes": extra, "ms_per_forward": ms, "ms_per_img": per_img,
+    return {"device": name, "model": args.model, "modes": extra, "ms_per_forward": ms, "ms_per_img": per_img,
             "fps": 1e3 / per_img}
 
 

@@ -1,16 +1,18 @@
-"""The least time an H100 could take for the RAFT update block that the
-TPU kernel K5 (``eemflow_tpu/ops/pallas/update_block.py``
-``motion_encoder_fused`` + ``gru_flowhead_fused``) computes, reckoned from
-its layer shapes.  K5 is not ported yet: this is a computed bound, not a
-measurement.
+"""The least time an H100 could take for the RAFT update block that kernel
+K5 computes (``kernels/csrc/update_block.cu``; the TPU kernels
+``eemflow_tpu/ops/pallas/update_block.py`` ``motion_encoder_fused`` +
+``gru_flowhead_fused``), reckoned from its layer shapes: a computed bound,
+not a measurement.
 
 Per iteration the two kernels run the motion encoder (convc1 1×1
 324→256, convc2 3×3 →192, convf1 7×7 2→128, convf2 3×3 →64, conv 3×3
 256→126, concat flow) and the SepConvGRU (1×5 then 5×1 stage, z/r/q gates
-over [h, inp, motion]) with the 2-conv flow head, on the 1/8 grid.  Bytes
-count each input and output of a launch once (the correlation features,
-flow, net, inp, the motion features between the two launches, the
-weights); operations are 2 per multiply-add.
+over [h, inp, motion]) with the 2-conv flow head, on the 1/8 grid of the
+input as ERAFT pads it (``ops/pad.py``'s "chairs" mode at ERAFT's default
+``pad_rate`` of 32: 720×1280 → 736×1280, a 92×160 grid).  Bytes count each
+input and output of a launch once (the correlation features, flow, net,
+inp, the motion features between the two launches, the weights);
+operations are 2 per multiply-add.
 
 Usage:
   python -m eemflow_tpu_torch.tools.update_block_bound --size 512 960 -bs 1 --iters 12
@@ -19,8 +21,12 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 from typing import Optional, Sequence
+
+from eemflow_tpu_torch.models.eraft import ERAFT
+from eemflow_tpu_torch.ops.pad import InputPadder
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32 outside
 # the tensor cores and bf16 on them, FLOP/s
@@ -51,11 +57,14 @@ def update_block_work(h: int, w: int, batch: int = 1, hidden: int = 128, context
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     p = argparse.ArgumentParser(description="Computed H100 bound of the RAFT update block (K5)")
-    p.add_argument("--size", type=int, nargs=2, default=[512, 960], help="input H W (grid is /8)")
+    p.add_argument("--size", type=int, nargs=2, default=[512, 960],
+                   help="input H W (the grid is 1/8 of the padded input)")
     p.add_argument("-bs", "--batch_size", type=int, default=1)
     p.add_argument("--iters", type=int, default=12)
     args = p.parse_args(argv)
-    h, w = args.size[0] // 8, args.size[1] // 8
+    pad_rate = inspect.signature(ERAFT).parameters["pad_rate"].default
+    ph, pw = InputPadder(args.size, mode="chairs", eval_pad_rate=pad_rate).padded_shape
+    h, w = ph // 8, pw // 8
     flops, nbytes = update_block_work(h, w, args.batch_size)
     flops *= args.iters
     nbytes *= args.iters

@@ -102,7 +102,7 @@ def test_registry():
     with pytest.raises(ValueError, match="does not support"):
         get_eval_model("eemflow", fast_decoders=True)
     with pytest.raises(KeyError):
-        get_model("eraft")
+        get_model("gma")
 
 
 FAST_MODES = {

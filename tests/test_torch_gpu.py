@@ -1,5 +1,7 @@
-"""Kernels of the port against their plain twins on the card.  Marked
-``gpu``: they skip where no CUDA device is present.  On a machine with a
+"""Kernels of the port against their plain twins on the card, K2's
+backward, the eval-only kernels' refusal under grad, and ERAFT on the card
+against the CPU.  Marked ``gpu``: they skip where no CUDA device is
+present.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports it) run them with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``."""
 
@@ -239,4 +241,181 @@ def test_fused_modes_on_card_match_standard(cuda):
         got = fused(ev1, ev2)[1][-1]
     assert launch_counts["fused_convs_pool"] - before["fused_convs_pool"] == 6
     assert launch_counts["coarse_head"] - before["coarse_head"] == 1
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _update_block(rng, device):
+    """A BasicUpdateBlock with He-scaled random conv weights, eval mode."""
+    from eemflow_tpu_torch.models.raft_core import BasicUpdateBlock
+
+    block = BasicUpdateBlock()
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                m.weight.copy_(torch.from_numpy(
+                    (rng.standard_normal(tuple(m.weight.shape)) * np.sqrt(2.0 / fan_in)).astype(np.float32)))
+                m.bias.copy_(torch.from_numpy((rng.standard_normal(m.bias.shape[0]) * 0.1).astype(np.float32)))
+    return block.to(device).eval()
+
+
+def _update_inputs(rng, h, w, device):
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return (t(np.tanh(rng.standard_normal((1, h, w, 128)))), t(np.maximum(rng.standard_normal((1, h, w, 128)), 0)),
+            t(rng.standard_normal((1, h, w, 324))), t(2 * rng.standard_normal((1, h, w, 2))))
+
+
+# float32: summation order only; bf16: as K3
+K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("grid", [(92, 160), (64, 120), (28, 12)], ids=["720p", "512x960", "28x12"])
+def test_update_block_kernel_matches_plain(cuda, grid, dtype):
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import update_block as k5
+    from eemflow_tpu_torch.ops.update_block import gru_flowhead_plain, make_fused_update, motion_encoder_plain
+
+    rng = np.random.default_rng(7)
+    fused = make_fused_update(_update_block(rng, cuda), dtype)
+    net, inp, corr, flow = _update_inputs(rng, *grid, cuda)
+    before = launch_counts["update_block"]
+    with torch.inference_mode():
+        motion = k5.update_motion(corr, flow, fused)
+        ref_motion = motion_encoder_plain(corr, flow, fused.motion, dtype)
+        net2, delta = k5.update_gru(net, inp, ref_motion, fused)
+        ref_net, ref_delta = gru_flowhead_plain(net, inp, ref_motion, fused.gru, dtype)
+    torch.cuda.synchronize()
+    assert launch_counts["update_block"] == before + 2
+    for got, ref in ((motion, ref_motion), (net2, ref_net), (delta, ref_delta)):
+        assert got.shape == ref.shape
+        assert _max_rel_err(got, ref) <= K5_TOL[dtype]
+
+
+def test_update_block_kernel_reads_strided_views(cuda):
+    """net and inp as NHWC views of NCHW tensors, corr as a slice: the
+    kernel reads them through their strides."""
+    from eemflow_tpu_torch.kernels import update_block as k5
+    from eemflow_tpu_torch.ops.update_block import make_fused_update
+
+    rng = np.random.default_rng(8)
+    fused = make_fused_update(_update_block(rng, cuda))
+    net, inp, corr, flow = _update_inputs(rng, 20, 28, cuda)
+    wide = torch.cat([corr, corr[..., :4]], dim=-1)
+    views = (net.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+             inp.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), wide[..., :324])
+    with torch.inference_mode():
+        want = k5.update_gru(net, inp, k5.update_motion(corr, flow, fused), fused)
+        got = k5.update_gru(views[0], views[1], k5.update_motion(views[2], flow, fused), fused)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) == 0.0
+
+
+def test_local_corr_backward_on_card(cuda):
+    """F1: K2's forward on the card under grad goes through LocalCorr; its
+    grads equal autograd through the twin."""
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+
+    rng = np.random.default_rng(9)
+    xa, ya = (torch.from_numpy(rng.standard_normal((2, 12, 20, 32)).astype(np.float32)).to(cuda) for _ in range(2))
+    x, y = xa.clone().requires_grad_(), ya.clone().requires_grad_()
+    out = k2.local_corr(x, y, 4, INDEX_53)
+    assert isinstance(out.grad_fn, k2.LocalCorr._backward_cls)
+    g = torch.randn_like(out)
+    gx, gy = torch.autograd.grad(out, [x, y], g)
+    x2, y2 = xa.clone().requires_grad_(), ya.clone().requires_grad_()
+    ref = k2.plain(x2, y2, 4, INDEX_53)
+    px, py = torch.autograd.grad(ref, [x2, y2], g)
+    torch.cuda.synchronize()
+    assert float((out - ref).detach().abs().max()) <= 1e-5
+    assert float((gx - px).abs().max()) <= 1e-5 and float((gy - py).abs().max()) <= 1e-5
+
+
+def test_eval_only_kernels_refuse_grad(cuda):
+    """F1: K1, K3, K4 and K5 have no backward; under grad, an input or a
+    weight that requires grad is refused instead of silently losing its
+    gradient."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import update_block as k5
+    from eemflow_tpu_torch.kernels import voxel_scatter as k1
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+    from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
+    from eemflow_tpu_torch.ops.update_block import make_fused_update
+
+    rng = np.random.default_rng(10)
+    ev = torch.zeros(1, 128, 4, device=cuda, requires_grad=True)
+    n = torch.zeros(1, dtype=torch.int32, device=cuda)
+    x = torch.randn(1, 8, 16, 16, device=cuda, requires_grad=True)
+    ws, bs = _conv_params(rng, (8,), (8,), cuda)
+    hw = HeadWeights(_head_params(rng, 5, cuda), 5)
+    f = [torch.randn(1, 12, 20, c, device=cuda, requires_grad=True) for c in (16, 32, 64)]
+    hw_live = HeadWeights({k: v.requires_grad_() for k, v in _head_params(rng, 5, cuda).items()}, 5)
+    f_const = [t.detach() for t in f]
+    fused = make_fused_update(_update_block(rng, cuda))  # the block's parameters require grad
+    net, inp, corr, flow = _update_inputs(rng, 8, 8, cuda)
+    motion = torch.zeros(1, 8, 8, 128, device=cuda)
+    calls = (
+        lambda: k1.voxel_scatter(ev, n, 5, 4, 4),
+        lambda: k3.fused_convs(x, ws, bs, 8),
+        lambda: coarse_head(f, f, hw, 5, INDEX_53, 4),
+        lambda: coarse_head(f_const, f_const, hw_live, 5, INDEX_53, 4),
+        lambda: k5.update_motion(corr.requires_grad_(), flow, fused),
+        lambda: k5.update_gru(net, inp, motion, fused),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match="eval-only"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def test_fused_pyramid_follows_an_in_place_edit(cuda):
+    """F2 on the card: the fused pyramid's packed chains (cached on the
+    model) follow an in-place edit of a pyramid weight."""
+    import os
+
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eemflow_hrem_golden.pth.tar")
+    sd = to_state_dict(load_torch_checkpoint(ckpt))
+    ev1, ev2 = (torch.randn(1, 128, 192, 5, device=cuda) for _ in range(2))
+    std = get_eval_model("eemflow")
+    fused = get_eval_model("eemflow", fast_pyramid=True, fast_head=True)
+    for m in (std, fused):
+        m.load_state_dict(sd)
+        m.to(cuda)
+    with torch.inference_mode():
+        fused(ev1, ev2)
+    for m in (std, fused):
+        with torch.no_grad():
+            m.pconv2_3[0].weight.mul_(-2.0)
+            m.decoder_1.conv7.weight.mul_(3.0)
+    with torch.inference_mode():
+        got = fused(ev1, ev2)[1][-1]
+        ref = std(ev1, ev2)[1][-1]
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("fused_update", [False, True], ids=["module", "fused_update"])
+def test_eraft_on_card_matches_cpu(cuda, fused_update):
+    import os
+
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eraft_hrem_golden.pth.tar")
+    model = get_eval_model("eraft", iters=4, fused_update=fused_update)
+    model.load_state_dict(to_state_dict(load_torch_checkpoint(ckpt)))
+    rng = np.random.default_rng(11)
+    ev1, ev2 = (torch.from_numpy(rng.standard_normal((1, 72, 104, 5)).astype(np.float32)) for _ in range(2))
+    with torch.inference_mode():
+        ref = model(ev1, ev2)[1]
+        before = launch_counts["update_block"]
+        got = model.to(cuda)(ev1.to(cuda), ev2.to(cuda))[1].cpu()
+    assert launch_counts["update_block"] - before == (8 if fused_update else 0)
+    assert got.shape == ref.shape == (1, 1, 72, 104, 2)
     assert float((got - ref).abs().max()) <= 1e-4

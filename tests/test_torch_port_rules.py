@@ -134,6 +134,19 @@ def test_fused_kernel_wrappers_refuse_other_devices():
         coarse_head_fused(f, f, HeadWeights({}, 5), (0,), 4)
 
 
+def test_update_block_wrapper_refuses_other_devices():
+    from eemflow_tpu_torch.kernels.update_block import update_gru, update_motion
+    from eemflow_tpu_torch.models.raft_core import BasicUpdateBlock
+    from eemflow_tpu_torch.ops.update_block import make_fused_update
+
+    fused = make_fused_update(BasicUpdateBlock())
+    t = lambda c: torch.empty(1, 4, 4, c, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        update_motion(t(324), t(2), fused)
+    with pytest.raises(ValueError, match="unsupported device"):
+        update_gru(t(128), t(128), t(128), fused)
+
+
 def test_build_targets_sm90a_into_an_ignored_directory():
     from eemflow_tpu_torch.kernels import build
 
@@ -142,10 +155,10 @@ def test_build_targets_sm90a_into_an_ignored_directory():
         assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
         for flag in ("-std=c++17", "-O3", "-c", "-fPIC", "-v"):
             assert flag in cmd
-    # one compile per source, all four kernels, linked once into out.so
+    # one compile per source, all five kernels, linked once into out.so
     assert [c[-1] for c in compiles] == build.source_paths()
     assert [os.path.basename(p) for p in build.source_paths()] == [
-        "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu"]
+        "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu", "update_block.cu"]
     assert link[link.index("-o") + 1] == "out.so" and "-shared" in link
     assert [c[c.index("-o") + 1] for c in compiles] == [p for p in link if p.endswith(".o")]
     assert all(os.path.exists(s) for s in build.source_paths())
