@@ -28,14 +28,18 @@ where it stopped:
      path (the main path of K1 and K2), then with ``--fast_head
      --fast_pyramid`` (the main path of K3 and K4); ERAFT (one sample,
      12 iterations) on the module path, then with ``--config
-     {"fused_update": true}`` (the main path of K5, 24 launches) and with
-     bf16 operands; the golden AEEs, the agreement of the paths, and small
-     forwards on the card against the same forwards on the CPU;
+     {"fused_update": true}`` (the main path of K5, 24 launches, no input
+     copied into another layout) and with bf16 operands; the golden AEEs,
+     the agreement of the paths, and small forwards on the card against
+     the same forwards on the CPU;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
      twin, the library yardstick and, for K3, K4 and K5, the port's
-     standard path for the same work; one 720×1280 B=1 EEMFlow forward in
+     standard path for the same work (for K5 also each conv kernel
+     instance's tile, registers, spills and occupancy, and its bounds: split
+     TF32 at the TF32 peak for float32, bf16 at the bf16 peak, beside the
+     float32 SIMT figure); one 720×1280 B=1 EEMFlow forward in
      the standard and in the fused modes; one whole device-voxelize eval
      sample; the ERAFT forward at 720×1280 and 512×960, B=1, on the module
      path and with ``fused_update``.
@@ -71,9 +75,10 @@ ERAFT_CKPT = os.path.join(REPO, "tests", "fixtures", "eraft_hrem_golden.pth.tar"
 ERAFT_JSON = os.path.join(REPO, "tests", "fixtures", "hrem_golden_eraft.json")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32
-# outside the tensor cores and bf16 on them, FLOP/s
+# outside the tensor cores, TF32 and bf16 on them, FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_BF16_FLOP_PER_S = 989e12
 
 H, W, BINS = 720, 1280, 5
@@ -339,6 +344,20 @@ def phase_build() -> None:
     for line in build.build_log.splitlines():
         if "ptxas" in line or "spill" in line:
             say(line.strip())
+
+
+def ptxas_lines(name: str) -> list:
+    """The ``-Xptxas -v`` lines (registers, shared memory, spills) of the
+    kernels whose mangled name holds ``name``, from this process's build."""
+    from eemflow_tpu_torch.kernels import build
+
+    out, current = [], ""
+    for line in build.build_log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            current = line
+        if name in current and ("ptxas" in line or "spill" in line):
+            out.append(line.strip())
+    return out
 
 
 def phase_parity(device: torch.device) -> dict:
@@ -648,6 +667,9 @@ def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
     require(abs(fused - std) < ERAFT_FUSED_TOL, "ERAFT's fused_update AEE differs from the module path")
     require(abs(bf16 - fused) < ERAFT_BF16_TOL, "ERAFT's bf16 fused_update AEE is off")
     require(counts["module path"]["update_block"] == 0, "the module path launched K5")
+    for label in ("fused_update", "fused_update bf16"):
+        require(counts[label]["update_block_relayout"] == 0,
+                f"ERAFT {label} copied an input of K5 into another layout")
     # one sample, 12 iterations, two entry points each
     for label in ("fused_update", "fused_update bf16"):
         require(counts[label]["update_block"] == 24, f"ERAFT {label} did not launch K5 24 times")
@@ -808,11 +830,21 @@ def times_k5(device, errs: dict, launches: dict) -> dict:
     720x1280 and 512x960 grids, float32 and bf16: device time (queued),
     wrapper calls back to back, the plain version, the bound, and the
     standard path for the same work (``BasicUpdateBlock`` without its mask
-    head: cuDNN convs, TF32 off, and the concatenations)."""
+    head: cuDNN convs, TF32 off, and the concatenations).  The float32
+    bound counts the three TF32 products of the split at the TF32 peak (the
+    least that keeps float32 accuracy on the tensor cores); the float32
+    SIMT figure, the bound before tensor cores, is printed beside it."""
     from eemflow_tpu_torch.kernels import update_block as k5
     from eemflow_tpu_torch.ops.update_block import gru_flowhead_plain, make_fused_update, motion_encoder_plain
     from eemflow_tpu_torch.tools.update_block_bound import update_block_work
 
+    for info in k5.kernel_info():
+        say(f"K5 conv_tc {info['tile']} {info['mode']}: {info['BM']}x{info['BN']} tile, {info['threads']} "
+            f"threads, {info['stages']} stages, {info['smem_bytes']} B of dynamic shared memory, "
+            f"{info['registers']} registers, {info['local_bytes']} B local (spills), "
+            f"{info['ctas_per_sm']} CTA(s) an SM")
+    for line in ptxas_lines("conv_tc"):
+        say(f"K5 {line}")
     rng = np.random.default_rng(5)
     block = k5_block(rng, device)
     row = None
@@ -823,7 +855,11 @@ def times_k5(device, errs: dict, launches: dict) -> dict:
             std = cold_queued_ms(lambda: block(*nchw, compute_mask=False), 5, device)
             std_warm = queued_ms(lambda: block(*nchw, compute_mask=False), reps=5)
             flops, nbytes = update_block_work(h, w, 1)
-            for dtype, rate in ((torch.float32, PEAK_FP32_FLOP_PER_S), (torch.bfloat16, PEAK_BF16_FLOP_PER_S)):
+            simt_ms = flops / PEAK_FP32_FLOP_PER_S * 1e3
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            modes = ((torch.float32, 3 * flops, PEAK_TF32_FLOP_PER_S, "3 TF32 products of the split at the TF32 peak"),
+                     (torch.bfloat16, flops, PEAK_BF16_FLOP_PER_S, "bf16 at the tensor-core peak"))
+            for dtype, ops, rate, what in modes:
                 fused = make_fused_update(block, dtype)
 
                 def pair():
@@ -837,14 +873,18 @@ def times_k5(device, errs: dict, launches: dict) -> dict:
                 warm = queued_ms(pair, reps=5)
                 wrapper = cuda_ms(pair, reps=5)
                 plain_ms = cuda_ms(plain, reps=5)
-                b_ms, b_by = bound_ms(nbytes, flops, rate)
+                b_ms, b_by = bound_ms(nbytes, ops, rate)
                 kind = str(dtype)[6:]
                 say(f"K5 update_block pair B=1 {h}x{w} {kind}: {dev:.4f} ms on the device after an L2 "
                     f"flush ({warm:.4f} warm, queued), {wrapper:.4f} ms per wrapper pair back to back "
-                    f"({flops / dev / 1e9:.1f} TFLOP/s); bound {b_ms:.4f} ms ({b_by} at the {kind} "
-                    f"peak: {flops} FLOP, {nbytes} B); plain version {plain_ms:.4f} ms; standard path "
-                    f"(BasicUpdateBlock without the mask, cuDNN float32) {std:.4f} ms on the device "
-                    f"after an L2 flush ({std_warm:.4f} warm)")
+                    f"({flops / dev / 1e9:.1f} TFLOP/s of the function, {ops / dev / 1e9:.1f} TFLOP/s of "
+                    f"tensor-core products, {100 * b_ms / dev:.1f}% of the bound); bound {b_ms:.4f} ms "
+                    f"({b_by}: {what}, {ops} FLOP; bytes {bytes_ms:.4f} ms for {nbytes} B); float32 SIMT "
+                    f"figure (67 TFLOP/s, the bound before tensor cores) {simt_ms:.4f} ms; plain version "
+                    f"{plain_ms:.4f} ms; standard path (BasicUpdateBlock without the mask, cuDNN float32) "
+                    f"{std:.4f} ms on the device after an L2 flush ({std_warm:.4f} warm)")
+                if (h, w) == K5_GRIDS[0]:
+                    k5_conv_times(pair, h * w, f"B=1 {h}x{w} {kind}")
                 if (h, w) == K5_GRIDS[0] and dtype == torch.float32:
                     row = {
                         "name": "update_block", "route": "cuda",
@@ -854,7 +894,29 @@ def times_k5(device, errs: dict, launches: dict) -> dict:
                         "ms": dev, "warm_ms": warm, "wrapper_ms": wrapper, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "standard_ms": std,
                     }
+                elif (h, w) == K5_GRIDS[0]:
+                    row["bf16_ms"], row["bf16_bound_ms"] = dev, b_ms
     return row
+
+
+def k5_conv_times(pair, pixels: int, kind: str) -> None:
+    """Device time of each conv launch of one K5 pair (torch.profiler) and
+    the rate of the function it computes."""
+    from eemflow_tpu_torch.tools.update_block_bound import update_block_convs
+
+    pair()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pair()
+        torch.cuda.synchronize()
+    convs = update_block_convs()
+    times = [e.device_time / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "conv_tc" in e.name]
+    require(len(times) == len(convs), f"K5 pair launched {len(times)} convs, not {len(convs)}")
+    parts = [f"{name} {ms:.4f} ({2 * k * cin * cout * pixels / ms / 1e9:.1f})"
+             for (name, k, cin, cout), ms in zip(convs, times)]
+    say(f"K5 pair {kind} by conv (torch.profiler: device ms, TFLOP/s of the function), sum "
+        f"{sum(times):.4f} ms: {'; '.join(parts)}")
 
 
 def times_eraft(device) -> None:

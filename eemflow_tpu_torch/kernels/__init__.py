@@ -26,6 +26,9 @@ import torch
 launch_counts = {
     "voxel_scatter": 0, "local_corr": 0, "fused_convs_pool": 0, "coarse_head": 0,
     "update_block": 0,
+    # not a launch: inputs K5's wrapper had to copy into a layout its
+    # loader reads (0 on ERAFT's main path)
+    "update_block_relayout": 0,
 }
 
 

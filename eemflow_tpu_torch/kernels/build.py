@@ -5,9 +5,9 @@ together, then one link into a C-ABI shared library loaded with
 No ``torch.utils.cpp_extension``, no PyTorch headers, no pybind and no
 ninja: a source that includes PyTorch's headers takes minutes to compile,
 a plain C interface seconds.  The library goes into ``_build/`` next to
-this file (git-ignored); its name carries a hash of the sources and the
-flags, so an edited source builds anew and a built one is reused.  The
-build runs at first use, never at import.
+this file (git-ignored); its name carries a hash of the sources, the
+headers and the flags, so an edited file builds anew and a built one is
+reused.  The build runs at first use, never at import.
 """
 
 from __future__ import annotations
@@ -23,7 +23,11 @@ from typing import List, Optional, Tuple
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
-SOURCES = ("voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu", "update_block.cu")
+SOURCES = (
+    "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu",
+    "update_block.cu", "update_block_tf32.cu", "update_block_bf16.cu",
+)
+HEADERS = ("update_block.cuh",)
 ARCH = "sm_90a"
 COMPILE_FLAGS = (
     "-gencode", f"arch=compute_90a,code={ARCH}",
@@ -44,7 +48,7 @@ def source_paths() -> List[str]:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for p in source_paths():
+    for p in source_paths() + [os.path.join(CSRC, s) for s in HEADERS]:
         with open(p, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libeemflow_kernels-{h.hexdigest()[:16]}.so")
@@ -130,6 +134,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fused_convs_args_size.restype = i
     lib.coarse_head_args_size.restype = i
     lib.update_block_args_size.restype = i
+    lib.update_block_kernel_info.argtypes = [i, i, p]
+    lib.update_block_kernel_info.restype = i
     lib.eemflow_error_string.argtypes = [i]
     lib.eemflow_error_string.restype = ctypes.c_char_p
 

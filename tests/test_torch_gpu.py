@@ -259,10 +259,11 @@ def _update_block(rng, device):
     return block.to(device).eval()
 
 
-def _update_inputs(rng, h, w, device):
+def _update_inputs(rng, h, w, device, batch=1):
     t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
-    return (t(np.tanh(rng.standard_normal((1, h, w, 128)))), t(np.maximum(rng.standard_normal((1, h, w, 128)), 0)),
-            t(rng.standard_normal((1, h, w, 324))), t(2 * rng.standard_normal((1, h, w, 2))))
+    b = batch
+    return (t(np.tanh(rng.standard_normal((b, h, w, 128)))), t(np.maximum(rng.standard_normal((b, h, w, 128)), 0)),
+            t(rng.standard_normal((b, h, w, 324))), t(2 * rng.standard_normal((b, h, w, 2))))
 
 
 # float32: summation order only; bf16: as K3
@@ -290,6 +291,50 @@ def test_update_block_kernel_matches_plain(cuda, grid, dtype):
     for got, ref in ((motion, ref_motion), (net2, ref_net), (delta, ref_delta)):
         assert got.shape == ref.shape
         assert _max_rel_err(got, ref) <= K5_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_update_block_kernel_matches_plain_at_batch_2(cuda, dtype):
+    """B=2 on the 28x12 grid: M = 672 pixels, so the last CTA tile is
+    ragged and tiles cross the batch boundary; no input needs a copy."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import update_block as k5
+    from eemflow_tpu_torch.ops.update_block import gru_flowhead_plain, make_fused_update, motion_encoder_plain
+
+    rng = np.random.default_rng(12)
+    fused = make_fused_update(_update_block(rng, cuda), dtype)
+    net, inp, corr, flow = _update_inputs(rng, 28, 12, cuda, batch=2)
+    before = dict(launch_counts)
+    with torch.inference_mode():
+        motion = k5.update_motion(corr, flow, fused)
+        ref_motion = motion_encoder_plain(corr, flow, fused.motion, dtype)
+        net2, delta = k5.update_gru(net, inp, ref_motion, fused)
+        ref_net, ref_delta = gru_flowhead_plain(net, inp, ref_motion, fused.gru, dtype)
+    torch.cuda.synchronize()
+    assert launch_counts["update_block"] == before["update_block"] + 2
+    assert launch_counts["update_block_relayout"] == before["update_block_relayout"]
+    for got, ref in ((motion, ref_motion), (net2, ref_net), (delta, ref_delta)):
+        assert got.shape == ref.shape and ref.shape[0] == 2
+        assert _max_rel_err(got, ref) <= K5_TOL[dtype]
+
+
+def test_eraft_fused_update_reads_its_inputs_in_place(cuda):
+    """ERAFT's forward through fused_update on the card launches K5 twice an
+    iteration and copies none of its inputs: net, inp, the correlation
+    features and the flow are already in the layout the kernel reads."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    torch.manual_seed(13)
+    model = get_eval_model("eraft", iters=3, fused_update=True).to(cuda)
+    ev1, ev2 = (torch.randn(1, 96, 128, 5, device=cuda) for _ in range(2))
+    before = dict(launch_counts)
+    with torch.inference_mode():
+        flow = model(ev1, ev2)[1][-1]
+    torch.cuda.synchronize()
+    assert launch_counts["update_block"] - before["update_block"] == 6
+    assert launch_counts["update_block_relayout"] == before["update_block_relayout"]
+    assert flow.shape == (1, 96, 128, 2) and bool(torch.isfinite(flow).all())
 
 
 def test_update_block_kernel_reads_strided_views(cuda):

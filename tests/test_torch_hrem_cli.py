@@ -114,10 +114,14 @@ def test_time_eval_on_cpu(extra):
 
 def test_update_block_bound():
     """K5's computed bound at ERAFT 512x960, B=1, 12 iterations: the layer
-    list of update_block.py gives 2,675,968 multiply-adds per grid pixel."""
+    list of update_block.py gives 2,675,968 multiply-adds per grid pixel;
+    float32 mode is bound by the split's three TF32 products at 495
+    TFLOP/s, bf16 mode by one product at 989."""
     from eemflow_tpu_torch.tools.update_block_bound import main as bound_main
 
     res = bound_main(["--size", "512", "960", "-bs", "1", "--iters", "12"])
     assert res["grid"] == [64, 120] and res["launches"] == 24
     assert res["flop"] == 2 * 2_675_968 * 64 * 120 * 12
-    assert res["bound_by"] == "operations" and abs(res["bound_ms"] - res["flop"] / 67e9) < 1e-9
+    assert res["bound_by"] == "operations" and abs(res["bound_ms"] - 3 * res["flop"] / 495e9) < 1e-9
+    assert abs(res["bf16_bound_ms"] - res["flop"] / 989e9) < 1e-9
+    assert abs(res["fp32_simt_ms"] - res["flop"] / 67e9) < 1e-9
