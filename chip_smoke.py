@@ -15,9 +15,12 @@ where it stopped:
      of each kernel);
   2. each kernel against its plain PyTorch twin at the main paths' shapes
      (K1 voxel scatter, K2 local correlation and its backward, K3 fused
-     conv chain + pool at the three 720×1280 pyramid levels in float32 and
-     at level 2 in bf16, and on a small concat chain; K4 coarse head at the
-     three 12×20 levels for B=1 and 2, groups 5 and 1; K5 update block,
+     conv chain + pool at the three 720×1280 pyramid levels for B=1 and
+     2, in float32 and in bf16 (the tensor-core kernel), on a ragged NHWC
+     view, and on a small concat chain (its SIMT version); K4 coarse head
+     at the three 12×20 levels for B=1 and 2, groups 5 and 1, at both
+     cluster sizes, and at an 8×15 grid and a grid that takes the
+     device-memory scratch; K5 update block,
      both entry points, at ERAFT's 92×160 and 64×120 grids and an odd
      28×12 one, in float32 and bf16, with He-scaled random weights), with
      the tolerance stated;
@@ -36,10 +39,13 @@ where it stopped:
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
      twin, the library yardstick and, for K3, K4 and K5, the port's
-     standard path for the same work (for K5 also each conv kernel
-     instance's tile, registers, spills and occupancy, and its bounds: split
+     standard path for the same work (for K3 and K5 also each kernel
+     instance's registers, spills and occupancy, and their bounds: split
      TF32 at the TF32 peak for float32, bf16 at the bf16 peak, beside the
-     float32 SIMT figure); one 720×1280 B=1 EEMFlow forward in
+     float32 SIMT figure; for K4 its registers, spills and clusters, at
+     both cluster sizes; K3's timed launches held against the twin on the
+     forward's own inputs, and a store probe: levels 1 and 2 timed again
+     writing the pooled output alone); one 720×1280 B=1 EEMFlow forward in
      the standard and in the fused modes; one whole device-voxelize eval
      sample; the ERAFT forward at 720×1280 and 512×960, B=1, on the module
      path and with ``fused_update``.
@@ -301,7 +307,7 @@ def k4_flops_bytes(B, h, w, packed, k):
     for lvl, c in enumerate(HEAD_CHANNELS):
         flops += 2 * B * hw * k * c
         cin = c
-        for i, ((cout, _, g, _), (wt, bs)) in enumerate(zip(packed["meta"], packed["levels"][lvl])):
+        for i, (cout, g, _) in enumerate(packed["meta"]):
             cin = k + packed["meta"][0][0] if i == 1 else cin
             flops += 2 * B * hw * cout * (cin // g) * 9
             nbytes += (cout * (cin // g) * 9 + cout) * 4
@@ -486,14 +492,18 @@ def phase_parity_k5(device: torch.device, rng) -> float:
 
 def phase_parity_k3(device: torch.device, rng) -> float:
     from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import launch_counts
 
     worst = 0.0
-    cases = [(lvl, torch.float32, 2) for lvl in range(3)] + [(1, torch.bfloat16, 2)]
+    cases = [(lvl, dtype, B) for dtype in (torch.float32, torch.bfloat16) for lvl in range(3) for B in (1, 2)]
     for lvl, dtype, B in cases:
         (cin, h, w), widths, pool, emit_full = K3_LEVELS[lvl]
         x = torch.from_numpy(rng.standard_normal((B, cin, h, w)).astype(np.float32)).to(device)
         ws, bs = conv_params(rng, (cin,) + widths[:-1], widths, device)
+        before = launch_counts["fused_convs_pool"]
         full, pooled = k3.fused_convs(x, ws, bs, pool, dtype, emit_full)
+        require(launch_counts["fused_convs_pool"] == before + 1,
+                f"K3 level {lvl + 1} did not run on the tensor-core kernel")
         ref_full, ref_pooled = k3.plain(x, ws, bs, pool, dtype, emit_full)
         torch.cuda.synchronize()
         tol = K3_TOL[str(dtype).split(".")[1]]
@@ -509,43 +519,79 @@ def phase_parity_k3(device: torch.device, rng) -> float:
                 f"pool {pool} {str(dtype)[6:]}: {what} max|Δ| {err:.3e} "
                 f"(tolerance {tol:g}·{scale:.2f} = {tol * scale:.3e})")
             require(err <= tol * scale, f"K3 disagrees with its twin at level {lvl + 1} ({what}, {dtype})")
-    # a concat chain (the EEMFlow+ FlowEstimatorDense pattern), no pool, ragged
+    # the tensor-core kernel on a ragged NHWC view, no pool
+    x = torch.from_numpy(rng.standard_normal((2, 37, 45, 32)).astype(np.float32)).to(device).permute(0, 3, 1, 2)
+    ws, bs = conv_params(rng, (32, 32), (32, 16), device)
+    for dtype in (torch.float32, torch.bfloat16):
+        got, _ = k3.fused_convs(x, ws, bs, None, dtype)
+        ref, _ = k3.plain(x, ws, bs, None, dtype)
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, ref)
+        tol = K3_TOL[str(dtype).split(".")[1]]
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        say(f"K3 NHWC view [2,37,45,32] convs [32,16] no pool {str(dtype)[6:]}: max|Δ| {err:.3e} "
+            f"(tolerance {tol:g}·{scale:.2f})")
+        require(err <= tol * scale, f"K3 disagrees with its twin on the ragged NHWC view ({dtype})")
+    # a concat chain (the EEMFlow+ FlowEstimatorDense pattern), no pool,
+    # ragged: the SIMT version
     x = torch.from_numpy(rng.standard_normal((2, 16, 37, 45)).astype(np.float32)).to(device)
     ws, bs = conv_params(rng, (16, 24, 32), (8, 8, 3), device)
     flags = dict(relus=(True, True, False), concat=(True, True, False))
+    before = launch_counts["fused_convs_pool_simt"]
     got, _ = k3.fused_convs(x, ws, bs, None, **flags)
+    require(launch_counts["fused_convs_pool_simt"] == before + 1, "the concat chain did not run on K3's SIMT version")
     ref, _ = k3.plain(x, ws, bs, None, **flags)
     torch.cuda.synchronize()
     err, scale = rel_err(got, ref)
     worst = max(worst, err)
-    say(f"K3 concat chain [2,16,37,45] convs [8,8,3] no pool: max|Δ| {err:.3e} "
+    say(f"K3 concat chain [2,16,37,45] convs [8,8,3] no pool (SIMT version): max|Δ| {err:.3e} "
         f"(tolerance {K3_TOL['float32']:g}·{scale:.2f})")
     require(err <= K3_TOL["float32"] * scale, "K3 disagrees with its twin on the concat chain")
     return worst
 
 
 def phase_parity_k4(device: torch.device, rng) -> float:
+    from eemflow_tpu_torch.kernels import coarse_head as k4
     from eemflow_tpu_torch.models.eemflow import INDEX_53
     from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
 
+    info = k4.kernel_info(device)
+    say(f"K4 coarse_head kernel: {info['threads']} threads, {info['registers']} registers, "
+        f"{info['local_bytes']} B local (spills); at 12x20 a CTA takes {info['smem_8']} B of shared "
+        f"memory in clusters of 8 ({info['max_clusters_8']} fit at once) and {info['smem_16']} B in "
+        f"clusters of 16 ({info['max_clusters_16']} fit); the wrapper takes clusters of {info['cluster_size']}")
     worst = 0.0
-    for groups in (5, 1):
-        weights = HeadWeights(head_params(rng, groups, device), groups)
-        for B in (1, 2):
-            f1, f2 = (
-                [torch.from_numpy(rng.standard_normal((B, 12, 20, c)).astype(np.float32)).to(device)
-                 for c in HEAD_CHANNELS]
-                for _ in range(2)
-            )
-            got = coarse_head(f1, f2, weights, groups, INDEX_53, 4)
-            ref = coarse_head(f1, f2, weights, groups, INDEX_53, 4, impl="plain")
-            torch.cuda.synchronize()
-            err, scale = rel_err(got, ref)
-            worst = max(worst, err)
-            say(f"K4 coarse_head B={B} 12x20 C=16/32/64 groups {groups}: max|Δ| {err:.3e}, "
-                f"largest |flow| {float(ref.abs().max()):.3f} (tolerance {K4_TOL:g}·{scale:.2f})")
-            require(tuple(got.shape) == (B, 12, 20, 2) and err <= K4_TOL * scale,
-                    f"K4 disagrees with its twin (B={B}, groups {groups})")
+    # (groups, B, grid, cluster size or None: the wrapper's)
+    cases = [(g, B, (12, 20), None) for g in (5, 1) for B in (1, 2)]
+    cases += [(5, 2, (12, 20), R) for R in (8, 16) if R != info["cluster_size"] and info[f"max_clusters_{R}"]]
+    cases += [(5, 2, (8, 15), None), (5, 1, (17, 30), None)]
+    weights = {}
+    for groups, B, (h, w), R in cases:
+        if groups not in weights:
+            weights[groups] = HeadWeights(head_params(rng, groups, device), groups)
+        f1, f2 = (
+            [torch.from_numpy(rng.standard_normal((B, h, w, c)).astype(np.float32)).to(device)
+             for c in HEAD_CHANNELS]
+            for _ in range(2)
+        )
+        got = k4._launch(f1, f2, weights[groups], INDEX_53, 4, R)
+        ref = coarse_head(f1, f2, weights[groups], groups, INDEX_53, 4, impl="plain")
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, ref)
+        worst = max(worst, err)
+        plan = k4.plan_launch(device, len(INDEX_53), weights[groups].kernel(device)["meta"], h, w,
+                              HEAD_CHANNELS, R)
+        if plan["scratch"]:
+            where = "activations in a device-memory scratch"
+        else:
+            where = (f"{plan['smem_bytes']} B of shared memory a CTA, weights "
+                     f"{'staged there' if plan['w_smem'] else 'read from device memory'}")
+        say(f"K4 coarse_head B={B} {h}x{w} C=16/32/64 groups {groups}, clusters of "
+            f"{R or info['cluster_size']}, {where}: max|Δ| {err:.3e}, largest |flow| "
+            f"{float(ref.abs().max()):.3f} (tolerance {K4_TOL:g}·{scale:.2f})")
+        require(tuple(got.shape) == (B, h, w, 2) and err <= K4_TOL * scale,
+                f"K4 disagrees with its twin (B={B}, {h}x{w}, groups {groups}, cluster {R})")
     return worst
 
 
@@ -593,6 +639,7 @@ def phase_end_to_end(device: torch.device, tmp: str) -> dict:
     # two samples, each one forward of two frames: K3 three times a frame, K4 once a forward
     require(launches["fused_convs_pool"] == 12 and launches["coarse_head"] == 2,
             "the fused path did not run K3 three times a frame and K4 once a forward")
+    require(counts["fused_convs_pool_simt"] == 0, "the fused path ran K3's SIMT version")
     host = aee["host voxelize"]
     say(f"golden AEE {golden['aee']:.7f}; host path |Δ| {abs(host - golden['aee']):.3e}, "
         f"fused path |Δ| {abs(aee[paths[1][1][0][0]] - golden['aee']):.3e} (tolerance {GOLDEN_TOL:g})")
@@ -956,6 +1003,7 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
     wrapper calls back to back, the twin, the bound, and the standard path
     for the same work (cuDNN convs + LeakyReLU + ``F.avg_pool2d`` of the
     level; the standard coarse stage: K2, rconvs, decoders, ``out_conv``)."""
+    from eemflow_tpu_torch.kernels import coarse_head as k4
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.kernels.fused_convs import pack_chain
     from eemflow_tpu_torch.models.eemflow import LEVEL_CHAINS, POOLS
@@ -996,6 +1044,46 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
                 g = getattr(model, n)(g)
             return F.avg_pool2d(g, POOLS[lvl])
 
+        info = k3.kernel_info(device)
+        for inst in info["instances"]:
+            say(f"K3 fused_convs_tc level {inst['level']} {inst['mode']} (NT={inst['nt']}): "
+                f"{inst['threads']} threads, {inst['registers']} registers, {inst['local_bytes']} B local "
+                f"(spills), {inst['ctas_per_sm']} CTA(s) an SM at the level's shared memory")
+        for lv in info["levels"]:
+            say(f"K3 plan level {lv['level']} {lv['mode']}: tile {lv['tile'][0]}x{lv['tile'][1]}, "
+                f"{lv['ctas']} CTAs a frame, ring of {lv['ring']} stages of {lv['stage_bytes']} B, "
+                f"{lv['smem_bytes']} B of shared memory, passes {lv['passes']}")
+        for line in ptxas_lines("fused_convs_tc"):
+            say(f"K3 {line}")
+        packs_bf16 = [pack_chain(ws, bs, True, device) for ws, bs in chains]
+
+        def fused_bf16(frame, lvl):
+            return k3.fused_convs(inputs[frame][lvl], *chains[lvl], POOLS[lvl], torch.bfloat16,
+                                  lvl < 2, packed=packs_bf16[lvl])
+
+        def pooled_only(frame, lvl):
+            return k3.fused_convs(inputs[frame][lvl], *chains[lvl], POOLS[lvl], torch.float32,
+                                  False, packed=packs[lvl])
+
+        # the launches timed below, held against the twin on the forward's
+        # own inputs: the error the kernels line reports is this plan's
+        for dtype, run in ((torch.float32, fused), (torch.bfloat16, fused_bf16)):
+            tol = K3_TOL[str(dtype).split(".")[1]]
+            for frame in range(2):
+                for lvl in range(3):
+                    got = run(frame, lvl)
+                    ref = k3.plain(inputs[frame][lvl], *chains[lvl], POOLS[lvl], dtype, lvl < 2)
+                    for what, g, r in zip(("full", "pooled"), got, ref):
+                        if g is None:
+                            continue
+                        err, scale = rel_err(g, r)
+                        if dtype == torch.float32:
+                            errs["fused_convs_pool"] = max(errs["fused_convs_pool"], err)
+                        say(f"K3 on the forward's inputs, frame {frame + 1} level {lvl + 1} "
+                            f"{str(dtype)[6:]}: {what} max|Δ| {err:.3e} (tolerance {tol:g}·{scale:.2f})")
+                        require(err <= tol * scale,
+                                f"K3 disagrees with its twin on the forward's level {lvl + 1} ({what}, {dtype})")
+
         flops_all = bytes_all = 0
         for lvl in range(3):
             (cin, h, w), widths, pool, emit_full = K3_LEVELS[lvl]
@@ -1003,28 +1091,51 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
             flops, nbytes = k3_flops_bytes(1, cin, h, w, widths, emit_full, pool)
             flops_all += 2 * flops
             bytes_all += 2 * nbytes
-            b_ms, b_by = bound_ms(nbytes, flops)
+            b_ms, b_by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+            ops_ms = 3 * flops / PEAK_TF32_FLOP_PER_S * 1e3
+            b16_ms, b16_by = bound_ms(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+            simt_ms = flops / PEAK_FP32_FLOP_PER_S * 1e3
             one = cold_queued_ms(lambda: fused(0, lvl), 20, device)
             one_warm = queued_ms(lambda: fused(0, lvl), reps=20)
+            one_bf16 = cold_queued_ms(lambda: fused_bf16(0, lvl), 20, device)
             one_wrapper = cuda_ms(lambda: fused(0, lvl))
             one_plain = cuda_ms(lambda: plain(0, lvl))
             one_std = cold_queued_ms(lambda: standard(0, lvl), 10, device)
+            if emit_full:
+                # the store probe: the same launch writing the pooled output
+                # alone; the difference is what the full output's direct
+                # stores from the fragments cost
+                full_bytes = 4 * widths[-1] * h * w
+                one_pooled = cold_queued_ms(lambda: pooled_only(0, lvl), 20, device)
+                extra = one - one_pooled
+                say(f"K3 level {lvl + 1} store probe: {one_pooled:.4f} ms after an L2 flush writing the "
+                    f"pooled output alone, so the full output's {full_bytes} B cost {extra:.4f} ms "
+                    f"({full_bytes / max(extra, 1e-9) / 1e6:.0f} GB/s over that difference; writing them "
+                    f"at the memory rate takes {full_bytes / PEAK_BYTES_PER_S * 1e3:.4f} ms)")
             say(f"K3 level {lvl + 1} [1,{cin},{h},{w}] convs {list(widths)} pool {pool}: {one:.4f} ms "
-                f"on the device after an L2 flush ({one_warm:.4f} warm, queued), {one_wrapper:.4f} ms "
-                f"per wrapper call; bound {b_ms:.4f} ms "
-                f"({b_by}: {flops} FLOP, {nbytes} B); twin {one_plain:.4f} ms; standard path "
-                f"(cuDNN conv{'s' if len(widths) > 1 else ''} + LeakyReLU + avg_pool2d) {one_std:.4f} ms "
-                f"on the device after an L2 flush")
+                f"on the device after an L2 flush ({one_warm:.4f} warm, queued; "
+                f"{flops / one / 1e9:.1f} TFLOP/s of the function), {one_wrapper:.4f} ms per wrapper "
+                f"call; bound {b_ms:.4f} ms, by {b_by} (3 TF32 products of the split at the TF32 peak "
+                f"{ops_ms:.4f} ms for {flops} FLOP of the function; {nbytes} B at the memory rate); float32 "
+                f"SIMT figure {simt_ms:.4f} ms; bf16 "
+                f"operands {one_bf16:.4f} ms after an L2 flush (bound {b16_ms:.4f} ms, {b16_by}); twin "
+                f"{one_plain:.4f} ms; standard path (cuDNN conv{'s' if len(widths) > 1 else ''} + "
+                f"LeakyReLU + avg_pool2d) {one_std:.4f} ms on the device after an L2 flush")
         six = lambda fn: [fn(f, l) for f in range(2) for l in range(3)]
         k3_ms = cold_queued_ms(lambda: six(fused), 10, device)
         k3_warm = queued_ms(lambda: six(fused), reps=10)
+        k3_bf16 = cold_queued_ms(lambda: six(fused_bf16), 10, device)
         k3_wrapper = cuda_ms(lambda: six(fused))
         k3_plain = cuda_ms(lambda: six(plain))
         k3_std = cold_queued_ms(lambda: six(standard), 5, device)
-        k3_bound, k3_by = bound_ms(bytes_all, flops_all)
+        k3_bound, k3_by = bound_ms(bytes_all, 3 * flops_all, PEAK_TF32_FLOP_PER_S)
+        k3_b16, k3_b16_by = bound_ms(bytes_all, flops_all, PEAK_BF16_FLOP_PER_S)
+        k3_simt = flops_all / PEAK_FP32_FLOP_PER_S * 1e3
         say(f"K3, the six calls of one forward (3 levels x 2 frames): {k3_ms:.4f} ms on the device "
             f"after an L2 flush ({k3_warm:.4f} warm, queued), {k3_wrapper:.4f} ms of wrapper calls; "
-            f"bound {k3_bound:.4f} ms ({k3_by}: {flops_all} FLOP, {bytes_all} B); twin "
+            f"bound {k3_bound:.4f} ms, by {k3_by} (3 TF32 products of the split at the TF32 peak for "
+            f"{flops_all} FLOP of the function; {bytes_all} B); float32 SIMT figure {k3_simt:.4f} ms; "
+            f"bf16 operands {k3_bf16:.4f} ms after an L2 flush (bound {k3_b16:.4f} ms, {k3_b16_by}); twin "
             f"{k3_plain:.4f} ms; standard path {k3_std:.4f} ms on the device after an L2 flush; no "
             f"single PyTorch call computes it")
 
@@ -1058,20 +1169,32 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
         k4_plain = cuda_ms(lambda: head("plain"))
         k4_std = cold_queued_ms(standard_head, 5, device)
         k4_std_warm = queued_ms(standard_head, reps=5)
-        say(f"K4 coarse_head B=1 {ph}x{pw} (groups {model.groups}): {k4_ms:.4f} ms on the device "
-            f"after an L2 flush ({k4_warm:.4f} warm, queued), {k4_wrapper:.4f} ms per wrapper call; "
-            f"bound {k4_bound:.6f} ms ({k4_by}: {k4_flops} FLOP, {k4_bytes} B); twin "
-            f"{k4_plain:.4f} ms; standard coarse stage {k4_std:.4f} ms on the device after an L2 "
-            f"flush ({k4_std_warm:.4f} warm; max|Δ| to it {err:.3e}); no single PyTorch call "
+        k4_info = k4.kernel_info(device)
+        say(f"K4 coarse_head B=1 {ph}x{pw} (groups {model.groups}), clusters of {k4_info['cluster_size']}: "
+            f"{k4_ms:.4f} ms on the device after an L2 flush ({k4_warm:.4f} warm, queued), "
+            f"{k4_wrapper:.4f} ms per wrapper call; bound {k4_bound:.6f} ms ({k4_by}: {k4_flops} FLOP, "
+            f"{k4_bytes} B); twin {k4_plain:.4f} ms; standard coarse stage {k4_std:.4f} ms on the device "
+            f"after an L2 flush ({k4_std_warm:.4f} warm; max|Δ| to it {err:.3e}); no single PyTorch call "
             f"computes it")
+        say(f"K4 kernel: {k4_info['threads']} threads, {k4_info['registers']} registers, "
+            f"{k4_info['local_bytes']} B local (spills); {k4_info['max_clusters_8']} clusters of 8 fit at "
+            f"once at {k4_info['smem_8']} B a CTA, {k4_info['max_clusters_16']} of 16 at {k4_info['smem_16']} B")
+        for R in (8, 16):
+            if not k4_info[f"max_clusters_{R}"]:
+                continue
+            run = lambda: k4._launch(nhwc(pooled[0]), nhwc(pooled[1]), hw_weights,
+                                      model.corr_indices, model.max_displacement, R)
+            say(f"K4 clusters of {R} ({3 * R} CTAs at B=1): {cold_queued_ms(run, 20, device):.4f} ms on the "
+                f"device after an L2 flush, {queued_ms(run, reps=20):.4f} warm (queued)")
 
     k3_row = {
         "name": "fused_convs_pool", "route": "cuda",
-        "source": "eemflow_tpu_torch/kernels/csrc/fused_convs.cu",
+        "source": "eemflow_tpu_torch/kernels/csrc/fused_convs_tc.cu",
         "replaces": "eemflow_tpu/ops/pallas/fused_convs.py:176",
         "launches": launches["fused_convs_pool"], "max_abs_err": errs["fused_convs_pool"],
         "ms": k3_ms, "warm_ms": k3_warm, "wrapper_ms": k3_wrapper, "plain_ms": k3_plain,
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None, "standard_ms": k3_std,
+        "bf16_ms": k3_bf16, "bf16_bound_ms": k3_b16,
     }
     k4_row = {
         "name": "coarse_head", "route": "cuda",

@@ -24,10 +24,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
 SOURCES = (
-    "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "coarse_head.cu",
+    "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "fused_convs_tc.cu", "coarse_head.cu",
     "update_block.cu", "update_block_tf32.cu", "update_block_bf16.cu",
 )
-HEADERS = ("update_block.cuh",)
+HEADERS = ("tensor_core.cuh", "update_block.cuh")
 ARCH = "sm_90a"
 COMPILE_FLAGS = (
     "-gencode", f"arch=compute_90a,code={ARCH}",
@@ -131,7 +131,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.update_block_motion_launch.restype = i
     lib.update_block_gru_launch.argtypes = [p, p]
     lib.update_block_gru_launch.restype = i
+    lib.fused_convs_tc_launch.argtypes = [p, p]
+    lib.fused_convs_tc_launch.restype = i
+    lib.fused_convs_tc_kernel_info.argtypes = [i, i, i, p]
+    lib.fused_convs_tc_kernel_info.restype = i
+    lib.coarse_head_max_clusters.argtypes = [i, i, p]
+    lib.coarse_head_max_clusters.restype = i
+    lib.coarse_head_kernel_info.argtypes = [p]
+    lib.coarse_head_kernel_info.restype = i
     lib.fused_convs_args_size.restype = i
+    lib.fused_convs_tc_args_size.restype = i
     lib.coarse_head_args_size.restype = i
     lib.update_block_args_size.restype = i
     lib.update_block_kernel_info.argtypes = [i, i, p]

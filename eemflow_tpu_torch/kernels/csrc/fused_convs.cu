@@ -1,5 +1,8 @@
 // K3: a chain of 3x3 stride-1 pad-1 convs, then an optional average pool,
-// hand-written for Hopper (sm_90a).
+// hand-written for Hopper (sm_90a): the SIMT version.  EEMFlow's pyramid
+// runs on the tensor-core version (fused_convs_tc.cu); this one serves the
+// chains that one does not take, concat chains and channel counts that are
+// not multiples of 16 (kernels/fused_convs.py chooses by the chain's shape).
 //
 // Replaces the TPU kernel eemflow_tpu/ops/pallas/fused_convs.py
 // fused_convs_pool (pallas_call at :330), which walks row bands of the

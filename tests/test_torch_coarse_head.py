@@ -146,23 +146,23 @@ def test_grouped_and_shuffle_helpers_match_jax(golden_params):
 
 
 def test_kernel_weight_layout(golden_params):
-    """K4's own packing: per conv [Cin/groups][9][Cout], element
-    (ci, ky*3+kx, co) = OIHW w[co, ci, ky, kx]; grouped convs stay grouped;
-    dense convs pad Cout to 4."""
+    """K4's own packing: per conv [Cout/COT][Cin/groups][9][COT], element
+    (u, ci, ky*3+kx, c) = OIHW w[u*COT + c, ci, ky, kx]; grouped convs stay
+    grouped; COT = 4 where the group width allows, 2 for conv7's two
+    channels, nothing padded."""
     _, sd = golden_params
     packed = pack_kernel_weights(sd, 5, "cpu")
-    assert [m[:3] for m in packed["meta"]] == [
-        (16, 16, 1), (100, 100, 1), (100, 100, 5), (100, 100, 5), (100, 100, 5),
-        (64, 64, 1), (32, 32, 1), (2, 4, 1),
+    assert packed["meta"] == [
+        (16, 1, 4), (100, 1, 4), (100, 5, 4), (100, 5, 4), (100, 5, 4),
+        (64, 1, 4), (32, 1, 4), (2, 1, 2),
     ]
-    assert all(m[3] == 4 for m in packed["meta"])
     w3, _ = packed["levels"][1][3]
     ref = sd["decoder_2.conv3.0.weight"]
-    assert tuple(w3.shape) == (20, 9, 100)
-    assert w3[7, 5, 42] == ref[42, 7, 1, 2]
+    assert tuple(w3.shape) == (25, 20, 9, 4)
+    assert w3[10, 7, 5, 2] == ref[42, 7, 1, 2]
     w7, b7 = packed["levels"][2][7]
-    assert tuple(w7.shape) == (32, 9, 4) and float(w7[:, :, 2:].abs().max()) == 0.0
-    assert tuple(b7.shape) == (4,)
+    assert tuple(w7.shape) == (1, 32, 9, 2) and tuple(b7.shape) == (2,)
+    assert torch.equal(w7[0, :, :, 1], sd["decoder_3.conv7.weight"][1].reshape(32, 9))
     np.testing.assert_array_equal(packed["wout"].numpy(), sd["out_conv.weight"].reshape(2, 6).numpy())
 
 

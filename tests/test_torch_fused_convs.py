@@ -115,32 +115,64 @@ def test_fused_convs_checks_match_jax():
 
 
 def test_kernel_plan_at_eemflow_levels():
-    """The 720x1280 levels each fit one launch (tile = the pool window);
-    the shared memory of each matches the reckoning in the kernel's note."""
+    """The 720x1280 levels each fit one tensor-core launch, with the tiles
+    and shared memory the kernel's note gives, at any batch size; chains the tensor-core kernel
+    does not take keep the SIMT plan (tile = the pool window); a chain too
+    wide for one launch is split, and one conv that cannot fit raises."""
     plans = {
-        "level1": ([16, 16], 32, 74_048),
-        "level2": ([32, 32, 32], 16, 92_800),
-        "level3": ([64, 64, 64], 8, 62_720),
+        "level1": ([16, 16], 32, (32, 32), 1, 113_152),
+        "level2": ([32, 32, 32], 16, (16, 16), 3, 227_456),
+        "level3": ([64, 64, 64], 8, (8, 16), 3, 213_248),
     }
-    for name, (chain, pool, nbytes) in plans.items():
+    for name, (chain, pool, tile, ring, nbytes) in plans.items():
+        assert k3.tc_eligible(chain, (False,) * (len(chain) - 1)), name
+        plan = k3.plan_tc(chain, pool, False)
+        assert (plan["tile"], plan["ring"], plan["smem_bytes"]) == (tile, ring, nbytes), name
+        assert k3.plan_tc(chain, pool, True)["tile"] == tile, name
         assert k3._plan_tile(chain, pool) == (pool, pool), name
-        assert k3.smem_bytes(chain, (pool, pool), True)[0] == nbytes, name
-    # a chain too wide for one launch is split; one conv that cannot fit raises
+    # pool windows that divide 8 take 8x16 tiles, then 8x8; other windows
+    # the window itself; without a pool 16x16 first
+    assert k3.plan_tc([32, 32], 4, bf16=False)["tile"] == (8, 16)
+    assert k3.plan_tc([16, 16], 12, bf16=True)["tile"] == (12, 12)
+    assert k3.plan_tc([32, 32], None, bf16=False)["tile"] == (16, 16)
+    assert k3.plan_tc([32, 32, 32], 32, bf16=False) is None
+    assert k3.plan_tc([32, 32], 32, bf16=False)["tile"] == (32, 32)
     assert k3._plan_tile([32, 32, 32], 32) is None
-    assert k3._plan_tile([32, 32], 32) == (32, 32)
     assert k3._plan_tile([16, 16, 16], None) == (k3.FIXED_TILE, k3.FIXED_TILE)
+    assert not k3.tc_eligible([16, 24, 32], (True, True))  # a concat chain stays SIMT
+    assert not k3.tc_eligible([8, 8], (False,))
 
 
 def test_kernel_weight_packing():
-    """[Cin][9][Cout padded to 8]: element (ci, ky*3+kx, co) is OIHW
-    w[co, ci, ky, kx]; bf16 packing rounds the values."""
+    """The tensor-core layout (K5's k_order + fragment_order) holds every
+    OIHW weight once, in two TF32 planes that add up to it (float32) or
+    rounded to bf16; the SIMT layout is [Cin][9][Cout padded to 8]; and
+    pack_chain picks the layout by the chain's shape."""
+    from eemflow_tpu_torch.kernels.update_block import tf32_round
+
     rng = np.random.default_rng(2)
-    w = torch.from_numpy(rng.standard_normal((5, 3, 3, 3)).astype(np.float32))
-    p = k3.pack_weight(w, bf16=False)
-    assert tuple(p.shape) == (3, 9, 8)
-    for co, ci, ky, kx in ((0, 0, 0, 0), (4, 2, 1, 2), (3, 1, 2, 0)):
-        assert p[ci, ky * 3 + kx, co] == w[co, ci, ky, kx]
-    assert float(p[:, :, 5:].abs().max()) == 0.0
-    pb = k3.pack_weight(w, bf16=True)
-    assert torch.equal(pb, p.to(torch.bfloat16).float())
+    w = torch.from_numpy(rng.standard_normal((16, 32, 3, 3)).astype(np.float32))
+    p = k3.pack_tc(w, bf16=False)
+    # [steps, n8, kk, plane, g, t, h]: K row 8kk + 4h + t of the step, column 8j + g
+    assert tuple(p.shape) == (9, 2, 4, 2, 8, 4, 2)
+    big, small = p[:, :, :, 0], p[:, :, :, 1]
+    assert torch.equal(tf32_round(big), big) and torch.equal(tf32_round(small), small)
+    s_, j, kk, g, t, h = 4, 1, 2, 3, 1, 1
+    k = 32 * s_ + 8 * kk + 4 * h + t          # K = tap * Cin + channel
+    tap, ci = divmod(k, 32)
+    assert float(big[s_, j, kk, g, t, h] + small[s_, j, kk, g, t, h]) == pytest.approx(
+        float(w[8 * j + g, ci, tap // 3, tap % 3]), rel=2e-7, abs=1e-12)
+    total = (big + small).double().sum()
+    assert float(total) == pytest.approx(float(w.double().sum()), rel=1e-6)
+    pb = k3.pack_tc(w, bf16=True)
+    assert pb.dtype == torch.bfloat16 and pb.numel() == w.numel()
+    assert torch.equal(torch.sort(pb.float().flatten())[0], torch.sort(w.to(torch.bfloat16).float().flatten())[0])
+
+    ps = k3.pack_weight(torch.from_numpy(rng.standard_normal((5, 3, 3, 3)).astype(np.float32)), bf16=False)
+    assert tuple(ps.shape) == (3, 9, 8) and float(ps[:, :, 5:].abs().max()) == 0.0
     assert tuple(k3.pack_bias(torch.ones(5)).shape) == (8,)
+    kinds = {k for *_, k in k3.pack_chain([w, w[:, :16]], [torch.zeros(16)] * 2, False, "cpu")}
+    assert kinds == {"tc"}
+    ws = [torch.zeros(8, 16, 3, 3), torch.zeros(8, 24, 3, 3)]
+    kinds = {k for *_, k in k3.pack_chain(ws, [torch.zeros(8)] * 2, False, "cpu", concat=(True, False))}
+    assert kinds == {"simt"}

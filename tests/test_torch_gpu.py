@@ -102,12 +102,12 @@ def _conv_params(rng, cins, couts, device):
     return ws, bs
 
 
-# EEMFlow's three pyramid levels at 720x1280 (padded 768x1280), B=2:
-# (input [B, C, H, W], conv widths, pool, emit_full)
+# EEMFlow's three pyramid levels at 720x1280 (padded 768x1280), per
+# sample: (input [C, H, W], conv widths, pool, emit_full)
 K3_LEVELS = {
-    "level1": ((2, 16, 384, 640), (16,), 32, True),
-    "level2": ((2, 32, 192, 320), (32, 32), 16, True),
-    "level3": ((2, 64, 96, 160), (64, 64), 8, False),
+    "level1": ((16, 384, 640), (16,), 32, True),
+    "level2": ((32, 192, 320), (32, 32), 16, True),
+    "level3": ((64, 96, 160), (64, 64), 8, False),
 }
 # float32: only the summation order differs; bf16: both sides round the
 # same operands, but an intermediate that differs in its last float32 bit
@@ -119,13 +119,15 @@ def _max_rel_err(got, ref):
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("batch", [1, 2], ids=["B1", "B2"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("level", sorted(K3_LEVELS))
-def test_fused_convs_kernel_matches_twin(cuda, level, dtype):
+def test_fused_convs_kernel_matches_twin(cuda, level, dtype, batch):
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.kernels import launch_counts
 
-    shape, widths, pool, emit_full = K3_LEVELS[level]
+    chw, widths, pool, emit_full = K3_LEVELS[level]
+    shape = (batch,) + chw
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
     ws, bs = _conv_params(rng, (shape[1],) + widths[:-1], widths, cuda)
@@ -153,11 +155,15 @@ def test_fused_convs_kernel_concat_chain_and_layouts(cuda):
     cins, couts = (16, 24, 32), (8, 8, 3)
     ws, bs = _conv_params(rng, cins, couts, cuda)
     flags = dict(relus=(True, True, False), concat=(True, True, False))
+    before = dict(launch_counts)
     got, none = k3.fused_convs(x.permute(0, 3, 1, 2), ws, bs, None, **flags)
     ref, _ = k3.plain(x.permute(0, 3, 1, 2), ws, bs, None, **flags)
     torch.cuda.synchronize()
     assert none is None and tuple(got.shape) == (2, 3, 37, 45)
     assert _max_rel_err(got, ref) <= K3_TOL[torch.float32]
+    # a concat chain runs on the SIMT kernel, counted apart
+    assert launch_counts["fused_convs_pool_simt"] == before["fused_convs_pool_simt"] + 1
+    assert launch_counts["fused_convs_pool"] == before["fused_convs_pool"]
 
     x = torch.from_numpy(rng.standard_normal((1, 32, 64, 64)).astype(np.float32)).to(cuda)
     ws, bs = _conv_params(rng, (32, 32), (32, 32), cuda)
@@ -168,6 +174,38 @@ def test_fused_convs_kernel_concat_chain_and_layouts(cuda):
     torch.cuda.synchronize()
     assert _max_rel_err(full, ref_full) <= K3_TOL[torch.float32]
     assert _max_rel_err(pooled, ref_pooled) <= K3_TOL[torch.float32]
+
+
+# (input [B, C, H, W] or an NHWC view's [B, H, W, C], conv widths, pool)
+K3_LAYOUTS = {
+    "ragged_no_pool": ((2, 32, 37, 45), False, (32, 16), None),
+    "nhwc_view_pool8": ((2, 40, 48, 64), True, (64, 64), 8),
+    "nhwc_ragged_one_conv": ((1, 21, 27, 16), True, (16,), None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(K3_LAYOUTS))
+def test_fused_convs_tc_ragged_and_strided(cuda, case, dtype):
+    """The tensor-core kernel on a grid its tiles do not divide, with no
+    pool, and reading NHWC views through their strides, at B=1 and 2."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import launch_counts
+
+    shape, nhwc, widths, pool = K3_LAYOUTS[case]
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    ws, bs = _conv_params(rng, (x.shape[1],) + widths[:-1], widths, cuda)
+    before = launch_counts["fused_convs_pool"]
+    full, pooled = k3.fused_convs(x, ws, bs, pool, dtype)
+    assert launch_counts["fused_convs_pool"] == before + 1
+    ref_full, ref_pooled = k3.plain(x, ws, bs, pool, dtype)
+    torch.cuda.synchronize()
+    assert _max_rel_err(full, ref_full) <= K3_TOL[dtype]
+    if pool is not None:
+        assert _max_rel_err(pooled, ref_pooled) <= K3_TOL[dtype]
 
 
 def _head_params(rng, groups, device, channels=(16, 32, 64), k=53):
@@ -208,13 +246,38 @@ def test_coarse_head_kernel_matches_twin(cuda, batch, groups):
     torch.cuda.synchronize()
     assert tuple(got.shape) == (batch, 12, 20, 2)
     assert _max_rel_err(got, ref) <= 1e-5
-    # a grid too large for shared memory runs from a device-memory scratch
-    f1, f2 = (
-        [torch.from_numpy(rng.standard_normal((batch, 17, 30, c)).astype(np.float32)).to(cuda) for c in (16, 32, 64)]
-        for _ in range(2)
-    )
-    got = coarse_head(f1, f2, hw, groups, INDEX_53, 4)
-    ref = coarse_head(f1, f2, hw, groups, INDEX_53, 4, impl="plain")
+    # a grid whose rows do not fill float4 stores, and one too large for
+    # shared memory, which runs from a device-memory scratch
+    for h, w in ((8, 15), (17, 30)):
+        f1, f2 = (
+            [torch.from_numpy(rng.standard_normal((batch, h, w, c)).astype(np.float32)).to(cuda)
+             for c in (16, 32, 64)]
+            for _ in range(2)
+        )
+        got = coarse_head(f1, f2, hw, groups, INDEX_53, 4)
+        ref = coarse_head(f1, f2, hw, groups, INDEX_53, 4, impl="plain")
+        torch.cuda.synchronize()
+        assert _max_rel_err(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_coarse_head_kernel_cluster_sizes(cuda, cluster):
+    """Both cluster sizes give the twin's flow at EEMFlow's 12x20 grids
+    (16 where the card can place such a cluster; the query says so)."""
+    from eemflow_tpu_torch.kernels import coarse_head as k4
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+    from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
+
+    info = k4.kernel_info(cuda)
+    assert info["max_clusters_8"] >= 1 and info["local_bytes"] == 0
+    if info[f"max_clusters_{cluster}"] < 1:
+        pytest.skip(f"this card holds no cluster of {cluster} CTAs at {info[f'smem_{cluster}']} B")
+    rng = np.random.default_rng(12)
+    hw = HeadWeights(_head_params(rng, 5, cuda), 5)
+    f1, f2 = ([torch.from_numpy(rng.standard_normal((2, 12, 20, c)).astype(np.float32)).to(cuda)
+               for c in (16, 32, 64)] for _ in range(2))
+    got = k4._launch(f1, f2, hw, INDEX_53, 4, cluster)
+    ref = coarse_head(f1, f2, hw, 5, INDEX_53, 4, impl="plain")
     torch.cuda.synchronize()
     assert _max_rel_err(got, ref) <= 1e-5
 
