@@ -11,10 +11,16 @@ where it stopped:
   0. device: the card's name, the device count, and the card's name and
      power limit as ``nvidia-smi`` reports them;
   1. build: the kernels' ``nvcc`` calls, one per source, all started
-     together (seconds, and the ``-Xptxas -v`` lines: registers and spills
-     of each kernel);
+     together with one more for the yardstick (the K1 and K2 kernels as
+     they were before their redesign, kept in this script only, to time
+     the redesign against) (seconds, and the ``-Xptxas -v`` lines:
+     registers and spills of each kernel);
   2. each kernel against its plain PyTorch twin at the main paths' shapes
-     (K1 voxel scatter, K2 local correlation and its backward, K3 fused
+     (K1 ``voxel_scatter`` and ``voxelize`` on the main path's batch and
+     the edge cases: n_valid 0 and 1, every event out of frame, every event
+     on one pixel, a frame that is not whole tiles, 15 bins; K2 local
+     correlation, ``local_corr_levels`` on the permuted views of the
+     forward's pooled levels at B=1 and 2, and K2's backward, K3 fused
      conv chain + pool at the three 720×1280 pyramid levels for B=1 and
      2, in float32 and in bf16 (the tensor-core kernel), on a ragged NHWC
      view, and on a small concat chain (its SIMT version); K4 coarse head
@@ -28,7 +34,8 @@ where it stopped:
      synthetic split with the golden checkpoints, each path's launch
      counts set to 0 just before it and read just after: EEMFlow on the
      host-voxelize path, the device-voxelize path and the batched device
-     path (the main path of K1 and K2), then with ``--fast_head
+     path (the main path of K1 and K2: one K1 ``voxelize`` a frame, one K2
+     launch a forward, and no ``normalize_voxel_grid``), then with ``--fast_head
      --fast_pyramid`` (the main path of K3 and K4); ERAFT (one sample,
      12 iterations) on the module path, then with ``--config
      {"fused_update": true}`` (the main path of K5, 24 launches, no input
@@ -39,23 +46,29 @@ where it stopped:
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
      twin, the library yardstick and, for K3, K4 and K5, the port's
-     standard path for the same work (for K3 and K5 also each kernel
+     standard path for the same work; K1 (both entry points, 2·10^5 and
+     30,000 events a frame) and K2 (the correlation step of a forward, its
+     launches and copy kernels) beside the paths they replaced (for K3 and K5 also each kernel
      instance's registers, spills and occupancy, and their bounds: split
      TF32 at the TF32 peak for float32, bf16 at the bf16 peak, beside the
      float32 SIMT figure; for K4 its registers, spills and clusters, at
      both cluster sizes; K3's timed launches held against the twin on the
      forward's own inputs, and a store probe: levels 1 and 2 timed again
      writing the pooled output alone); one 720×1280 B=1 EEMFlow forward in
-     the standard and in the fused modes; one whole device-voxelize eval
-     sample; the ERAFT forward at 720×1280 and 512×960, B=1, on the module
-     path and with ``fused_update``.
+     the standard mode (also with the earlier K2 step) and in the fused
+     modes; one whole device-voxelize eval sample against the earlier K1
+     and K2 path; the ERAFT forward at 720×1280 and 512×960, B=1, on the
+     module path and with ``fused_update``.
 
-Then one JSON line of every ported kernel (``ms`` is device time; for K3
+Then one JSON line of every ported kernel (``ms`` is device time; for K1
+``voxel_scatter`` at 2·10^5 events a frame, with ``voxelize_*`` and
+``*_30k`` beside it; for K2 the three levels of a forward; for K3
 and K4 with the L2 cache flushed before each call, as a forward leaves
 their weights, and ``warm_ms`` without the flush; for K5 one pair of
 calls, one iteration, at the 92×160 grid; ``wrapper_ms`` the time per
 wrapper call back to back; ``standard_ms`` the device time of the
-standard path that K3, K4 or K5 replaces), and as the last line
+standard path that K3, K4 or K5 replaces; ``yardstick_*`` the K1 and K2
+paths before their redesign), and as the last line
 ``{"ok": true, "device": {...}}``.  Any fault exits non-zero without the
 ``ok`` line, as does a machine without CUDA.  Synthetic data goes to a
 temporary directory outside the repository.  Parity phases run float32
@@ -89,6 +102,10 @@ PEAK_BF16_FLOP_PER_S = 989e12
 
 H, W, BINS = 720, 1280, 5
 K1_TOL_REL = 1e-5  # of the largest cell: atomics sum in no fixed order
+# voxelize, relative to max(1, largest |plain|): shared-memory atomics sum a
+# cell in no fixed order, and the statistics are summed in another order
+# (float64) than the plain version's two-pass float32
+K1_VOXELIZE_TOL = 1e-5
 K2_TOL = 1e-5
 # relative to max(1, largest |twin|): float32 differs in summation order
 # only; in bf16 both sides round the same operands, but an intermediate that
@@ -165,8 +182,9 @@ def queued_ms(fn, reps: int) -> float:
     """Mean device milliseconds of ``fn``: the ``reps`` calls are queued
     behind a sleep kernel long enough to cover their issue on the host, so
     on the device they run back to back and the CUDA events time the device
-    work alone, not the wrapper's Python and launch overhead.  Fails if the
-    host was still issuing when the sleep ended."""
+    work alone, not the wrapper's Python and launch overhead.  A sleep the
+    host outran (the machine's shared cores can stall it) is doubled, up to
+    three times; fails if the host was still issuing when the last ended."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -181,15 +199,17 @@ def queued_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     cycles_per_ms = 1_000_000 / start.elapsed_time(end)
-    torch.cuda._sleep(int(cycles_per_ms * (2 * issue_ms + 5)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    still_queued = not start.query()
-    torch.cuda.synchronize()
-    require(still_queued, "the host fell behind the sleep: the queued time is not device time")
-    return start.elapsed_time(end) / reps
+    for attempt in range(4):
+        torch.cuda._sleep(int(cycles_per_ms * (2 * issue_ms + 5) * 2 ** attempt))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        still_queued = not start.query()
+        torch.cuda.synchronize()
+        if still_queued:
+            return start.elapsed_time(end) / reps
+    raise SmokeFailure("the host fell behind the sleep: the queued time is not device time")
 
 
 def cold_queued_ms(fn, reps: int, device) -> float:
@@ -232,18 +252,171 @@ def make_hrem_fixture(base: str, seed: int = 99, n_events: int = 30000) -> str:
     return root
 
 
-def k1_batch(rng, n_valid, N: int = 1 << 18, dt_zero=()):
+def k1_batch(rng, n_valid, N: int = 1 << 18, dt_zero=(), h: int = H, w: int = W, pixel=None):
     """[B, N, 4] padded event rows: sorted relative µs timestamps, x/y
-    drawn two pixels past every edge (out-of-frame events), p in {0, 1};
-    samples listed in ``dt_zero`` share one timestamp (ΔT == 0)."""
+    drawn two pixels past every edge of an h×w frame (out-of-frame events)
+    unless ``pixel`` (x, y) fixes them, p in {0, 1}; samples listed in
+    ``dt_zero`` share one timestamp (ΔT == 0)."""
     ev = np.zeros((len(n_valid), N, 4), np.float32)
     for b, n in enumerate(n_valid):
         t = np.zeros(n) if b in dt_zero else np.sort(rng.uniform(0, 50_000, n))
         ev[b, :n, 0] = t
-        ev[b, :n, 1] = rng.integers(-2, W + 2, n)
-        ev[b, :n, 2] = rng.integers(-2, H + 2, n)
+        ev[b, :n, 1] = rng.integers(-2, w + 2, n) if pixel is None else pixel[0]
+        ev[b, :n, 2] = rng.integers(-2, h + 2, n) if pixel is None else pixel[1]
         ev[b, :n, 3] = rng.integers(0, 2, n)
     return ev, np.asarray(n_valid, np.int32)
+
+
+# The kernels K1 and K2 were before their redesign, kept here only as the
+# yardstick the redesign is timed against in the same run: K1 as a zero-fill
+# and one thread per event with two global atomicAdds, K2 as one thread per
+# output over NHWC-contiguous inputs (the wrapper copied EEMFlow's permuted
+# views), one launch per level.
+YARDSTICK_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void yardstick_voxel_scatter_kernel(const float4* __restrict__ events, const int* __restrict__ n_valid,
+                                               float* __restrict__ grid, int N, int bins, int H, int W) {
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nv = min(n_valid[b], N);
+  if (i >= nv) return;
+  const float4* ev = events + (size_t)b * N;
+  const float4 e = ev[i];
+  const float t0 = ev[0].x;
+  float dT = __fsub_rn(ev[nv - 1].x, t0);
+  if (dT == 0.0f) dT = 1.0f;
+  const float ts = __fdiv_rn(__fmul_rn((float)(bins - 1), __fsub_rn(e.x, t0)), dT);
+  const float tis = floorf(ts);
+  const float dts = __fsub_rn(ts, tis);
+  const int x = (int)e.y;
+  const int y = (int)e.z;
+  if (x < 0 || x >= W || y < 0 || y >= H || !(tis >= 0.0f)) return;
+  const float pol = (e.w == 0.0f) ? -1.0f : e.w;
+  const size_t hw = (size_t)H * W;
+  float* cell = grid + (size_t)b * bins * hw + (size_t)y * W + x;
+  if (tis < (float)bins) atomicAdd(cell + (size_t)tis * hw, __fmul_rn(pol, __fsub_rn(1.0f, dts)));
+  if (__fadd_rn(tis, 1.0f) < (float)bins) atomicAdd(cell + ((size_t)tis + 1) * hw, __fmul_rn(pol, dts));
+}
+
+extern "C" int yardstick_voxel_scatter_launch(const float* events, const int* n_valid, float* grid, int B, int N,
+                                              int bins, int H, int W, cudaStream_t stream) {
+  if (B <= 0 || N <= 0) return (int)cudaSuccess;
+  yardstick_voxel_scatter_kernel<<<dim3((N + 255) / 256, B), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(events), n_valid, grid, N, bins, H, W);
+  return (int)cudaGetLastError();
+}
+
+__global__ void yardstick_local_corr_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                                            const int* __restrict__ idx, float* __restrict__ out, long long total,
+                                            int H, int W, int C, int K, int md, float inv_c) {
+  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= total) return;
+  const int j = (int)(o % K);
+  const long long p = o / K;
+  const int xx = (int)(p % W);
+  const long long q = p / W;
+  const int yy = (int)(q % H);
+  const long long b = q / H;
+  const int win = 2 * md + 1;
+  const int ch = idx[j];
+  const int y2 = yy + ch / win - md;
+  const int x2 = xx + ch % win - md;
+  float acc = 0.0f;
+  if (y2 >= 0 && y2 < H && x2 >= 0 && x2 < W) {
+    const float* xp = x + p * C;
+    const float* yp = y + ((b * H + y2) * W + x2) * C;
+    for (int c = 0; c < C; ++c) acc = fmaf(xp[c], yp[c], acc);
+  }
+  out[o] = acc * inv_c;
+}
+
+extern "C" int yardstick_local_corr_launch(const float* x, const float* y, const int* idx, float* out, int B, int H,
+                                           int W, int C, int K, int md, float inv_c, cudaStream_t stream) {
+  const long long total = (long long)B * H * W * K;
+  if (total <= 0) return (int)cudaSuccess;
+  yardstick_local_corr_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(x, y, idx, out, total, H, W, C,
+                                                                                   K, md, inv_c);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+class Yardstick:
+    """The K1 and K2 call sequences the redesign replaced, on the kernels
+    above: built by one ``nvcc`` started beside the port's build."""
+
+    def __init__(self, tmp: str):
+        from eemflow_tpu_torch.kernels import build
+
+        src = os.path.join(tmp, "yardstick.cu")
+        with open(src, "w") as f:
+            f.write(YARDSTICK_CU)
+        self.path = os.path.join(tmp, "yardstick.so")
+        self.proc = subprocess.Popen(
+            [build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-shared", "-o", self.path, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        self.lib = None
+
+    def load(self) -> None:
+        import ctypes
+
+        out, _ = self.proc.communicate(timeout=600)
+        require(self.proc.returncode == 0, f"the yardstick kernels did not build:\n{out}")
+        lib = ctypes.CDLL(self.path)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.yardstick_voxel_scatter_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.yardstick_local_corr_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        self.lib = lib
+        self.idx = {}
+
+    def voxel_scatter(self, events, n_valid, bins, h, w):
+        """The replaced K1 wrapper: a zero-filled grid, then the atomic scatter."""
+        import ctypes
+
+        B, N, _ = events.shape
+        grid = torch.zeros((B, bins, h, w), dtype=torch.float32, device=events.device)
+        rc = self.lib.yardstick_voxel_scatter_launch(
+            events.data_ptr(), n_valid.data_ptr(), grid.data_ptr(), B, N, bins, h, w,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        require(rc == 0, f"yardstick voxel scatter failed to launch ({rc})")
+        return grid
+
+    def voxelize(self, events, n_valid, bins, h, w):
+        """The replaced device-voxelize step: the scatter, then
+        ``normalize_voxel_grid``'s tensor ops."""
+        from eemflow_tpu_torch.events.voxel import normalize_voxel_grid
+
+        return normalize_voxel_grid(self.voxel_scatter(events, n_valid, bins, h, w))
+
+    def local_corr(self, x, y, md, indices):
+        """The replaced K2 wrapper: NHWC copies of both inputs, one launch."""
+        import ctypes
+
+        x = x.contiguous()
+        y = y.contiguous()
+        B, h, w, C = x.shape
+        key = (tuple(indices), x.device)
+        if key not in self.idx:
+            self.idx[key] = torch.tensor(indices, dtype=torch.int32, device=x.device)
+        idx = self.idx[key]
+        out = torch.empty((B, h, w, len(indices)), dtype=torch.float32, device=x.device)
+        rc = self.lib.yardstick_local_corr_launch(
+            x.data_ptr(), y.data_ptr(), idx.data_ptr(), out.data_ptr(), B, h, w, C, len(indices), md,
+            float(np.float32(1.0 / C)), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        require(rc == 0, f"yardstick local correlation failed to launch ({rc})")
+        return out
+
+    def corrs(self, model, p1, p2):
+        """The replaced standard-forward correlation step: one call a level on
+        permuted views of the pooled NCHW features, NCHW views out."""
+        return [
+            self.local_corr(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), model.max_displacement,
+                            model.corr_indices).permute(0, 3, 1, 2)
+            for a, b in zip(p1, p2)
+        ]
 
 
 def conv_params(rng, cins, couts, device):
@@ -334,11 +507,12 @@ def phase_device(device: torch.device) -> dict:
     return {"platform": "gpu", "kind": name, "count": count}
 
 
-def phase_build() -> None:
+def phase_build(tmp: str) -> "Yardstick":
     from eemflow_tpu_torch.kernels import build
 
     phase("1 build")
     t0 = time.perf_counter()
+    yard = Yardstick(tmp)  # its nvcc runs beside the port's
     build.load()
     lib = os.path.relpath(build.library_path(), REPO)
     if build.build_log:
@@ -350,6 +524,10 @@ def phase_build() -> None:
     for line in build.build_log.splitlines():
         if "ptxas" in line or "spill" in line:
             say(line.strip())
+    yard.load()
+    say(f"built the yardstick (the K1 and K2 kernels before their redesign, timed against it) by one more nvcc "
+        f"beside the port's; all built in {time.perf_counter() - t0:.1f} s")
+    return yard
 
 
 def ptxas_lines(name: str) -> list:
@@ -368,23 +546,11 @@ def ptxas_lines(name: str) -> list:
 
 def phase_parity(device: torch.device) -> dict:
     from eemflow_tpu_torch.kernels import local_corr as k2
-    from eemflow_tpu_torch.kernels import voxel_scatter as k1
     from eemflow_tpu_torch.models.eemflow import INDEX_53
 
     phase("2 kernels against their twins")
     rng = np.random.default_rng(0)
-    ev, nv = k1_batch(rng, (200_000, 150_000), dt_zero=(1,))
-    ev_t = torch.from_numpy(ev).to(device)
-    nv_t = torch.from_numpy(nv).to(device)
-    got = k1.voxel_scatter(ev_t, nv_t, BINS, H, W)
-    ref = k1.plain(ev_t, nv_t, BINS, H, W)
-    torch.cuda.synchronize()
-    k1_err = float((got - ref).abs().max())
-    k1_scale = float(ref.abs().max())
-    say(f"K1 voxel_scatter B=2 N=2^18 n_valid={nv.tolist()} (sample 1: ΔT==0) "
-        f"bins={BINS} {H}x{W}: max|Δ| {k1_err:.3e}, largest cell {k1_scale:.3f}, "
-        f"tolerance {K1_TOL_REL:g}·largest = {K1_TOL_REL * k1_scale:.3e}")
-    require(k1_scale > 0 and k1_err <= K1_TOL_REL * k1_scale, "K1 disagrees with its twin")
+    k1_err, voxelize_err = phase_parity_k1(device, rng)
 
     k2_err = 0.0
     for shape in ((1, 12, 20, 16), (1, 12, 20, 32), (1, 12, 20, 64), (1, 96, 160, 64)):
@@ -398,12 +564,97 @@ def phase_parity(device: torch.device) -> dict:
         say(f"K2 local_corr {list(shape)} K=53: max|Δ| {err:.3e} (tolerance {K2_TOL:g})")
         require(tuple(got.shape) == shape[:3] + (53,) and err <= K2_TOL,
                 f"K2 disagrees with its twin at {shape}")
+    k2_err = max(k2_err, phase_parity_k2_levels(device, rng))
     phase_parity_k2_backward(device, rng)
     k3_err = phase_parity_k3(device, rng)
     k4_err = phase_parity_k4(device, rng)
     k5_err = phase_parity_k5(device, rng)
-    return {"voxel_scatter": k1_err, "local_corr": k2_err, "fused_convs_pool": k3_err,
+    return {"voxel_scatter": k1_err, "voxelize": voxelize_err, "local_corr": k2_err, "fused_convs_pool": k3_err,
             "coarse_head": k4_err, "update_block": k5_err}
+
+
+def phase_parity_k1(device: torch.device, rng):
+    """K1's two entry points against their plain versions: the main path's
+    batch and the edge cases (n_valid 0 and 1, every event out of frame,
+    every event on one pixel, a frame that is not a whole number of tiles,
+    15 bins)."""
+    from eemflow_tpu_torch.events.voxel import voxelize_plain
+    from eemflow_tpu_torch.kernels import voxel_scatter as k1
+
+    cases = (
+        ("B=2 N=2^18 n_valid (200000, 150000), sample 1 ΔT==0", k1_batch(rng, (200_000, 150_000), dt_zero=(1,)),
+         BINS, H, W),
+        ("n_valid 0 and 1", k1_batch(rng, (0, 1), N=4096), BINS, H, W),
+        ("every event out of frame", k1_batch(rng, (20_000, 5_000), N=1 << 15, pixel=(W + 3, 5)), BINS, H, W),
+        ("every event on one pixel (shared-atomic contention)",
+         k1_batch(rng, (50_000, 20_000), N=1 << 16, pixel=(7, 9)), BINS, H, W),
+        ("a 45x77 frame (not whole 32x32 tiles), bins 15",
+         k1_batch(rng, (3_000, 5_000), N=8192, h=45, w=77), 15, 45, 77),
+        ("bins 15 at 720x1280", k1_batch(rng, (100_000, 60_000), N=1 << 17), 15, H, W),
+    )
+    worst = {"scatter": 0.0, "voxelize": 0.0}
+    for label, (ev, nv), bins, h, w in cases:
+        e = torch.from_numpy(ev).to(device)
+        n = torch.from_numpy(nv).to(device)
+        for fn, ref_fn, what in ((k1.voxel_scatter, k1.plain, "scatter"), (k1.voxelize, voxelize_plain, "voxelize")):
+            got = fn(e, n, bins, h, w)
+            ref = ref_fn(e, n, bins, h, w)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            largest = float(ref.abs().max())
+            tol = K1_TOL_REL * largest if what == "scatter" else K1_VOXELIZE_TOL * max(1.0, largest)
+            worst[what] = max(worst[what], err)
+            say(f"K1 {what} {label}: max|Δ| {err:.3e}, largest |cell| {largest:.3f}, tolerance {tol:.3e} "
+                f"({'K1_TOL_REL·largest' if what == 'scatter' else 'K1_VOXELIZE_TOL·max(1, largest)'})")
+            require(tuple(got.shape) == tuple(ref.shape) and bool(torch.isfinite(got).all()) and err <= tol,
+                    f"K1 {what} disagrees with its plain version ({label})")
+    return worst["scatter"], worst["voxelize"]
+
+
+def forward_pooled(model, batch: int, device, seed: int):
+    """The three pooled NCHW levels of both frames of a 720x1280 standard
+    forward (random input), as ``EEMFlow.forward`` makes them."""
+    from eemflow_tpu_torch.ops.pad import InputPadder
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    frames = [torch.randn(batch, H, W, BINS, generator=g).to(device) for _ in range(2)]
+    padder = InputPadder((H, W), mode="chairs", eval_pad_rate=model.pad_rate)
+    with torch.inference_mode():
+        ev1, ev2 = padder.pad_nchw(*(f.permute(0, 3, 1, 2).contiguous() for f in frames))
+        return model.pyramid(ev1), model.pyramid(ev2)
+
+
+def phase_parity_k2_levels(device: torch.device, rng) -> float:
+    """``local_corr_levels`` on the permuted NCHW views of the forward's
+    three pooled levels (golden weights) at B=1 and 2, against the plain
+    version level by level; each result channels-first in memory."""
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    model = get_eval_model("eemflow")
+    model.load_state_dict(to_state_dict(load_torch_checkpoint(GOLDEN_CKPT)))
+    model.to(device)
+    worst = 0.0
+    for batch in (1, 2):
+        p1, p2 = forward_pooled(model, batch, device, seed=10 + batch)
+        pairs = [(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1)) for a, b in zip(p1, p2)]
+        before = launch_counts["local_corr"]
+        with torch.inference_mode():
+            got = k2.local_corr_levels(pairs, model.max_displacement, model.corr_indices)
+        require(launch_counts["local_corr"] == before + 1, "local_corr_levels did not take one launch")
+        for (x, y), g in zip(pairs, got):
+            ref = k2.plain(x, y, model.max_displacement, model.corr_indices)
+            torch.cuda.synchronize()
+            err = float((g - ref).abs().max())
+            worst = max(worst, err)
+            say(f"K2 local_corr_levels B={batch} level {list(x.shape)} (a permuted NCHW view of the forward's "
+                f"pooled level): max|Δ| {err:.3e} (tolerance {K2_TOL:g}); output channels-first: "
+                f"{g.permute(0, 3, 1, 2).is_contiguous()}")
+            require(tuple(g.shape) == tuple(ref.shape) and err <= K2_TOL and g.permute(0, 3, 1, 2).is_contiguous(),
+                    f"local_corr_levels disagrees with the plain version at B={batch}, {list(x.shape)}")
+    return worst
 
 
 def phase_parity_k2_backward(device: torch.device, rng) -> None:
@@ -605,37 +856,56 @@ def phase_end_to_end(device: torch.device, tmp: str) -> dict:
     with open(GOLDEN_JSON) as f:
         golden = json.load(f)
     root = make_hrem_fixture(tmp, seed=golden["fixture_seed"])
-    # each main path: (label, its CLI runs, the kernels it must launch)
+    # each main path: (label, its CLI runs with the K1 calls and K2 launches
+    # each must make, the kernels it must launch); two samples of two frames:
+    # K1 (voxelize) once a frame on the device path, K2 once a forward
     paths = (
         ("standard", (
-            ("host voxelize", []),
-            ("device voxelize", ["--device_voxelize"]),
-            ("device voxelize, eval_batch 2", ["--device_voxelize", "--eval_batch", "2"]),
+            ("host voxelize", [], 0, 2),
+            ("device voxelize", ["--device_voxelize"], 4, 2),
+            ("device voxelize, eval_batch 2", ["--device_voxelize", "--eval_batch", "2"], 2, 1),
         ), ("voxel_scatter", "local_corr")),
         ("fused", (
-            ("fused modes (--fast_head --fast_pyramid)", ["--fast_head", "--fast_pyramid"]),
+            ("fused modes (--fast_head --fast_pyramid)", ["--fast_head", "--fast_pyramid"], 0, 0),
         ), ("fused_convs_pool", "coarse_head")),
     )
+    # the device path normalizes inside K1: normalize_voxel_grid's tensor ops
+    # must not run
+    import eemflow_tpu_torch.events.voxel as voxel_module
+
+    normalize = voxel_module.normalize_voxel_grid
+    normalize_calls = []
+    voxel_module.normalize_voxel_grid = lambda grid: normalize_calls.append(1) or normalize(grid)
     aee = {}
     launches = {}
-    for path, runs, kernels in paths:
-        reset_launch_counts()
-        for label, extra in runs:
-            before = dict(launch_counts)
-            t0 = time.perf_counter()
-            res = test_hrem([
-                "-model", "eemflow", "-int", "dt1", "--data_root", root,
-                "--checkpoint", GOLDEN_CKPT, "--save_dir", os.path.join(tmp, "out"),
-                "--save_csv", "--device", str(device), *extra,
-            ])
-            aee[label] = res["mean"]["AEE"]
-            delta = {k: launch_counts[k] - before[k] for k in launch_counts}
-            say(f"{label}: AEE {aee[label]:.7f} in {time.perf_counter() - t0:.1f} s; launches {delta}")
-        counts = dict(launch_counts)
-        say(f"launches on the {path} path: {counts}")
-        for k in kernels:
-            require(counts[k] > 0, f"kernel {k} was not launched on the {path} path")
-            launches[k] = counts[k]
+    try:
+        for path, runs, kernels in paths:
+            reset_launch_counts()
+            for label, extra, k1_calls, k2_launches in runs:
+                before = dict(launch_counts)
+                t0 = time.perf_counter()
+                res = test_hrem([
+                    "-model", "eemflow", "-int", "dt1", "--data_root", root,
+                    "--checkpoint", GOLDEN_CKPT, "--save_dir", os.path.join(tmp, "out"),
+                    "--save_csv", "--device", str(device), *extra,
+                ])
+                aee[label] = res["mean"]["AEE"]
+                delta = {k: launch_counts[k] - before[k] for k in launch_counts}
+                say(f"{label}: AEE {aee[label]:.7f} in {time.perf_counter() - t0:.1f} s; launches {delta}")
+                require(delta["voxel_scatter"] == k1_calls and delta["local_corr"] == k2_launches,
+                        f"{label}: {delta['voxel_scatter']} K1 calls and {delta['local_corr']} K2 launches, not "
+                        f"{k1_calls} and {k2_launches} (one K2 launch a forward)")
+            counts = dict(launch_counts)
+            say(f"launches on the {path} path: {counts}")
+            for k in kernels:
+                require(counts[k] > 0, f"kernel {k} was not launched on the {path} path")
+                launches[k] = counts[k]
+    finally:
+        voxel_module.normalize_voxel_grid = normalize
+    say(f"K2 launches per standard forward: 1 (host and device paths: 2 forwards, 2 launches; eval_batch 2: "
+        f"1 forward, 1 launch); normalize_voxel_grid calls on the standard paths: {len(normalize_calls)} "
+        f"(the device path normalizes inside K1's voxelize)")
+    require(not normalize_calls, "normalize_voxel_grid's tensor ops ran on the standard paths")
     # two samples, each one forward of two frames: K3 three times a frame, K4 once a forward
     require(launches["fused_convs_pool"] == 12 and launches["coarse_head"] == 2,
             "the fused path did not run K3 three times a frame and K4 once a forward")
@@ -739,137 +1009,239 @@ def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
     return {"update_block": counts["fused_update"]["update_block"]}
 
 
-def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> list:
+def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict, yard: Yardstick) -> list:
     from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
-    from eemflow_tpu_torch.data.device_input import make_device_preprocess
-    from eemflow_tpu_torch.data.hrem import HREMEventFlow
-    from eemflow_tpu_torch.eval.runner import Tester
-    from eemflow_tpu_torch.events.voxel import voxel_votes
-    from eemflow_tpu_torch.kernels import local_corr as k2
-    from eemflow_tpu_torch.kernels import voxel_scatter as k1
-    from eemflow_tpu_torch.models.eemflow import INDEX_53
     from eemflow_tpu_torch.models.registry import get_eval_model
 
     phase("4 times (CUDA events, after a warm-up)")
-    rng = np.random.default_rng(2)
-    ev, nv = k1_batch(rng, (200_000, 200_000))
-    ev_t = torch.from_numpy(ev).to(device)
-    nv_t = torch.from_numpy(nv).to(device)
-    idx, val = voxel_votes(ev_t, nv_t, BINS, H, W)
-    grid_bytes = len(nv) * BINS * H * W * 4
-    # the least the function must move: each valid event read once, the
-    # grid written once; the kernel's zero-fill and its atomic
-    # read-modify-writes are costs of its design, not of the function
-    k1_bytes = int(nv.sum()) * 16 + grid_bytes
-    k1_design_bytes = grid_bytes + idx.numel() * 8
-    k1_bound, k1_by = bound_ms(k1_bytes, 2 * idx.numel())
-    k1_ms = queued_ms(lambda: k1.voxel_scatter(ev_t, nv_t, BINS, H, W), reps=20)
-    k1_wrapper = cuda_ms(lambda: k1.voxel_scatter(ev_t, nv_t, BINS, H, W))
-    k1_plain = cuda_ms(lambda: k1.plain(ev_t, nv_t, BINS, H, W), reps=5)
-
-    def library():
-        g = torch.zeros(len(nv) * BINS * H * W, device=device)
-        g.index_put_((idx,), val, accumulate=True)
-
-    k1_lib = cuda_ms(library)
-    say(f"K1 voxel_scatter B=2 N=2^18 n_valid=2e5 {H}x{W}: {k1_ms:.4f} ms on the device "
-        f"(zero-fill + kernel, queued), {k1_wrapper:.4f} ms per wrapper call back to back; "
-        f"bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B; the design adds {k1_design_bytes} B "
-        f"of zero-fill and atomic read-modify-writes for {idx.numel()} votes); twin "
-        f"{k1_plain:.4f} ms; index_put_(accumulate=True) on the same votes {k1_lib:.4f} ms "
-        f"(twin and library back to back)")
-
-    shapes = ((1, 12, 20, 16), (1, 12, 20, 32), (1, 12, 20, 64))
-    pairs = [
-        tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(device) for _ in range(2))
-        for s in shapes
-    ]
-    k2_bytes = k2_flops = 0
-    for (b, h, w, c) in shapes:
-        k2_bytes += 2 * b * h * w * c * 4 + 53 * 4 + b * h * w * 53 * 4
-        k2_flops += 2 * b * h * w * 53 * c
-    k2_bound, k2_by = bound_ms(k2_bytes, k2_flops)
-    k2_ms = queued_ms(lambda: [k2.local_corr(x, y, 4, INDEX_53) for x, y in pairs], reps=50)
-    k2_wrapper = cuda_ms(lambda: [k2.local_corr(x, y, 4, INDEX_53) for x, y in pairs], reps=50)
-    k2_plain = cuda_ms(lambda: [k2.plain(x, y, 4, INDEX_53) for x, y in pairs], reps=20)
-    for (x, y), s in zip(pairs, shapes):
-        one = queued_ms(lambda: k2.local_corr(x, y, 4, INDEX_53), reps=50)
-        one_wrapper = cuda_ms(lambda: k2.local_corr(x, y, 4, INDEX_53), reps=50)
-        say(f"K2 local_corr {list(s)} K=53: {one:.4f} ms on the device (queued), "
-            f"{one_wrapper:.4f} ms per wrapper call back to back")
-    say(f"K2 local_corr, the three 12x20 levels of one forward (C=16/32/64, K=53): "
-        f"{k2_ms:.4f} ms on the device (queued), {k2_wrapper:.4f} ms of wrapper calls back "
-        f"to back; bound {k2_bound:.6f} ms ({k2_by}: {k2_bytes} B, {k2_flops} FLOP); "
-        f"twin {k2_plain:.4f} ms (back to back); no single PyTorch call computes it")
+    k1_row = times_k1(device, errs, launches, yard)
 
     sd = to_state_dict(load_torch_checkpoint(GOLDEN_CKPT))
     model = get_eval_model("eemflow")
     model.load_state_dict(sd)
     model.to(device)
+    k2_row = times_k2(device, model, errs, launches, yard)
     x1, x2 = (torch.randn(1, H, W, BINS, device=device) for _ in range(2))
     k3_row, k4_row = times_k3_k4(device, model, x1, x2, errs, launches)
+    times_forwards(device, model, sd, x1, x2, yard)
+    times_sample(device, model, tmp, yard)
+
+    k5_row = times_k5(device, errs, launches)
+    times_eraft(device)
+    return [k1_row, k2_row, k3_row, k4_row, k5_row]
+
+
+def times_k1(device, errs: dict, launches: dict, yard: Yardstick) -> dict:
+    """K1 at 720x1280, B=2, with 2·10^5 events a frame and with 30,000 (the
+    synthetic HREM fixture's count): ``voxel_scatter`` and ``voxelize`` on
+    the device (queued) and per wrapper call back to back, against the replaced
+    path (zero-fill + atomic kernel, then ``normalize_voxel_grid`` for
+    voxelize), ``index_put_(accumulate=True)`` on the same votes (then the
+    same normalisation), the plain versions, and the bytes bound: each
+    valid event read once, the grid written once."""
+    from eemflow_tpu_torch.events.voxel import normalize_voxel_grid, voxel_votes, voxelize_plain
+    from eemflow_tpu_torch.kernels import voxel_scatter as k1
+
+    rng = np.random.default_rng(2)
+    row = {
+        "name": "voxel_scatter", "route": "cuda",
+        "source": "eemflow_tpu_torch/kernels/csrc/voxel_scatter.cu",
+        "replaces": "eemflow_tpu/ops/pallas/voxel_scatter.py:101",
+        "launches": launches["voxel_scatter"], "max_abs_err": errs["voxel_scatter"],
+        "voxelize_max_abs_err": errs["voxelize"], "standard_ms": None,
+    }
+    for n_events, tag in ((200_000, ""), (30_000, "_30k")):
+        ev, nv = k1_batch(rng, (n_events, n_events))
+        e = torch.from_numpy(ev).to(device)
+        n = torch.from_numpy(nv).to(device)
+        idx, val = voxel_votes(e, n, BINS, H, W)
+        nbytes = int(nv.sum()) * 16 + len(nv) * BINS * H * W * 4
+        bound, by = bound_ms(nbytes, 2 * idx.numel())
+
+        def library():
+            g = torch.zeros(len(nv) * BINS * H * W, device=device)
+            g.index_put_((idx,), val, accumulate=True)
+            return g.view(len(nv), BINS, H, W)
+
+        t = {}
+        for what, fn in (
+            ("scatter", lambda: k1.voxel_scatter(e, n, BINS, H, W)),
+            ("voxelize", lambda: k1.voxelize(e, n, BINS, H, W)),
+            ("replaced scatter", lambda: yard.voxel_scatter(e, n, BINS, H, W)),
+            ("replaced voxelize", lambda: yard.voxelize(e, n, BINS, H, W)),
+        ):
+            t[what] = (queued_ms(fn, reps=20), cuda_ms(fn))
+        t["library"] = cuda_ms(library)
+        t["library voxelize"] = cuda_ms(lambda: normalize_voxel_grid(library()))
+        plain = (cuda_ms(lambda: k1.plain(e, n, BINS, H, W), reps=5),
+                 cuda_ms(lambda: voxelize_plain(e, n, BINS, H, W), reps=5))
+        say(f"K1 B=2 N=2^18 n_valid={n_events} {H}x{W}, bound {bound:.5f} ms ({by}: {nbytes} B, each valid event "
+            f"read once and the grid written once; {idx.numel()} votes), device (queued) / wrapper back to back: "
+            f"voxel_scatter {t['scatter'][0]:.4f} / {t['scatter'][1]:.4f} ms (the replaced zero-fill + atomics "
+            f"{t['replaced scatter'][0]:.4f} / {t['replaced scatter'][1]:.4f}); voxelize {t['voxelize'][0]:.4f} / "
+            f"{t['voxelize'][1]:.4f} ms (the replaced path with normalize_voxel_grid {t['replaced voxelize'][0]:.4f} / "
+            f"{t['replaced voxelize'][1]:.4f}); index_put_(accumulate=True) "
+            f"{t['library']:.4f} ms, with normalize_voxel_grid {t['library voxelize']:.4f} (back to back); "
+            f"plain versions {plain[0]:.4f} / {plain[1]:.4f} ms")
+        row.update({
+            f"ms{tag}": t["scatter"][0], f"wrapper_ms{tag}": t["scatter"][1], f"plain_ms{tag}": plain[0],
+            f"bound_ms{tag}": bound, f"library_ms{tag}": t["library"], f"yardstick_ms{tag}": t["replaced scatter"][0],
+            f"voxelize_ms{tag}": t["voxelize"][0], f"voxelize_wrapper_ms{tag}": t["voxelize"][1],
+            f"voxelize_plain_ms{tag}": plain[1], f"voxelize_library_ms{tag}": t["library voxelize"],
+            f"voxelize_yardstick_ms{tag}": t["replaced voxelize"][0],
+        })
+        if not tag:
+            row["bound_by"] = by
+    return row
+
+
+def kernel_counts(fn, name: str):
+    """(launches of kernels whose name holds ``name``, other kernels) in
+    one call of ``fn`` (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(name in k for k in names), sum(name not in k for k in names)
+
+
+def times_k2(device, model, errs: dict, launches: dict, yard: Yardstick) -> dict:
+    """K2 in the 720x1280 B=1 standard forward: the three levels' correlation
+    step (``EEMFlow._corrs`` on the forward's pooled features) on the device
+    and per call back to back, its launches and the other kernels it runs
+    (copies), against the replaced step (one wrapper call a level, each copying
+    its two permuted inputs), the plain version and the bytes bound."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import local_corr as k2
+
+    p1, p2 = forward_pooled(model, 1, device, seed=20)
+    K = len(model.corr_indices)
+    nbytes = flops = 0
+    for a in p1:
+        b, c, h, w = a.shape
+        nbytes += 2 * b * h * w * c * 4 + K * 4 + b * h * w * K * 4
+        flops += 2 * b * h * w * K * c
+    bound, by = bound_ms(nbytes, flops)
+    with torch.inference_mode():
+        new = lambda: model._corrs(p1, p2)
+        old = lambda: yard.corrs(model, p1, p2)
+        plain = lambda: [k2.plain(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), model.max_displacement,
+                                  model.corr_indices) for a, b in zip(p1, p2)]
+        err = max(float((x - y).abs().max()) for x, y in zip(new(), old()))
+        require(err <= K2_TOL, "K2's correlation step disagrees with the replaced step")
+        before = launch_counts["local_corr"]
+        new()
+        per_forward = launch_counts["local_corr"] - before
+        require(per_forward == 1, f"the standard forward's correlation step took {per_forward} K2 launches")
+        n_new, other_new = kernel_counts(new, "local_corr")
+        n_old, other_old = kernel_counts(old, "local_corr")
+        t_new = (queued_ms(new, reps=50), cuda_ms(new, reps=50))
+        t_old = (queued_ms(old, reps=50), cuda_ms(old, reps=50))
+        t_new2 = (queued_ms(new, reps=50), cuda_ms(new, reps=50))
+        t_plain = cuda_ms(plain, reps=10)
+    require(n_new == 1 and other_new == 0, f"K2's step ran {n_new} K2 kernels and {other_new} others")
+    dev = (t_new[0] + t_new2[0]) / 2
+    wrap = (t_new[1] + t_new2[1]) / 2
+    say(f"K2 local_corr_levels, the three 12x20 levels of a 720x1280 B=1 forward (C=16/32/64, K={K}): "
+        f"{n_new} launch and {other_new} other kernels per forward; {dev:.4f} ms on the device (queued; "
+        f"{t_new[0]:.4f} and {t_new2[0]:.4f} in two runs around the replaced step's), {wrap:.4f} ms per call "
+        f"back to back; "
+        f"the replaced step: {n_old} launches and {other_old} copy kernels, {t_old[0]:.4f} ms on the device, "
+        f"{t_old[1]:.4f} ms back to back (max|Δ| to it {err:.3e}); bound {bound:.6f} ms ({by}: {nbytes} B, "
+        f"{flops} FLOP); plain version {t_plain:.4f} ms; no single PyTorch call computes it")
+    return {
+        "name": "local_corr", "route": "cuda",
+        "source": "eemflow_tpu_torch/kernels/csrc/local_corr.cu",
+        "replaces": "eemflow_tpu/ops/pallas/local_corr.py:104",
+        "launches": launches["local_corr"], "max_abs_err": errs["local_corr"],
+        "ms": dev, "wrapper_ms": wrap, "plain_ms": t_plain,
+        "bound_ms": bound, "bound_by": by, "library_ms": None, "standard_ms": None,
+        "launches_per_forward": n_new, "copy_kernels": other_new,
+        "yardstick_ms": t_old[0], "yardstick_wrapper_ms": t_old[1],
+        "yardstick_launches_per_forward": n_old, "yardstick_copy_kernels": other_old,
+    }
+
+
+def times_forwards(device, model, sd, x1, x2, yard: Yardstick) -> None:
+    """One 720x1280 B=1 EEMFlow forward, standard (also with the replaced K2
+    step in place of the one launch) and fused, back to back and on the
+    device."""
+    from eemflow_tpu_torch.models.registry import get_eval_model
 
     flows = {}
-    fwd = {}
     fused = get_eval_model("eemflow", fast_head=True, fast_pyramid=True)
     fused.load_state_dict(sd)
     fused.to(device)
-    for label, m in (("standard", model), ("fused (--fast_head --fast_pyramid)", fused)):
-        def forward(m=m):
-            with torch.inference_mode():
-                return m(x1, x2)[1][-1]
 
-        flows[label] = flow = forward()
+    def forward(m):
+        with torch.inference_mode():
+            return m(x1, x2)[1][-1]
+
+    def timed(label, m):
+        flows[label] = flow = forward(m)
         require(tuple(flow.shape) == (1, H, W, 2) and bool(torch.isfinite(flow).all()),
                 f"720x1280 {label} forward is not finite or has the wrong shape")
-        fwd[label] = (cuda_ms(forward, reps=20), queued_ms(forward, reps=2))
+        b2b, dev = cuda_ms(lambda: forward(m), reps=20), queued_ms(lambda: forward(m), reps=2)
         say(f"EEMFlow forward 720x1280 B=1, {label} (host-voxelized input on the card): "
-            f"{fwd[label][0]:.3f} ms per call back to back ({1e3 / fwd[label][0]:.1f} fps), "
-            f"{fwd[label][1]:.3f} ms on the device (queued)")
-    err = float((flows["standard"] - flows["fused (--fast_head --fast_pyramid)"]).abs().max())
-    say(f"720x1280 fused vs standard forward: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g})")
-    require(err <= FORWARD_TOL, "the fused 720x1280 forward disagrees with the standard one")
+            f"{b2b:.3f} ms per call back to back ({1e3 / b2b:.1f} fps), {dev:.3f} ms on the device (queued)")
+
+    timed("standard", model)
+    model._corrs = lambda p1, p2: yard.corrs(model, p1, p2)
+    try:
+        timed("standard with the replaced K2 step", model)
+    finally:
+        del model._corrs
+    timed("standard (again)", model)
+    timed("fused (--fast_head --fast_pyramid)", fused)
+    for label in ("standard with the replaced K2 step", "fused (--fast_head --fast_pyramid)"):
+        err = float((flows["standard"] - flows[label]).abs().max())
+        say(f"720x1280 {label} vs standard forward: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g})")
+        require(err <= FORWARD_TOL, f"the 720x1280 {label} forward disagrees with the standard one")
+
+
+def times_sample(device, model, tmp: str, yard: Yardstick) -> None:
+    """The whole device-voxelize eval sample (packed events from the host →
+    K1 voxelize ×2 → forward with one K2 launch → flow on the host),
+    against the replaced path (K1 scatter + normalize_voxel_grid ×2, three K2
+    calls with their copies), alternated: replaced, this, this, replaced."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.data.hrem import HREMEventFlow
+    from eemflow_tpu_torch.eval.runner import Tester
 
     ds = HREMEventFlow(os.path.join(tmp, "hrem"), raw_events=True)
     ds.change_test_sequence("indoor_fast")
     sample = ds[0]
-    tester = Tester(model, device, preprocess=make_device_preprocess(BINS, H, W))
-    for _ in range(3):
-        tester.run_sample(sample)
-    reps = 20
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        tester.run_sample(sample)
-    sample_ms = (time.perf_counter() - t0) / reps * 1e3
-    say(f"whole eval sample, device voxelize (packed events from the host → K1 ×2 + "
-        f"normalize → forward → flow on the host): {sample_ms:.3f} ms ({1e3 / sample_ms:.1f} fps)")
 
-    k5_row = times_k5(device, errs, launches)
-    times_eraft(device)
+    def pr8_preprocess(batch):
+        out = {k: v for k, v in batch.items() if k not in ("events_old", "events_new", "n_old", "n_new")}
+        for key, ev, n in (("event_volume_old", "events_old", "n_old"), ("event_volume_new", "events_new", "n_new")):
+            grid = yard.voxelize(batch[ev].contiguous(), batch[n].to(torch.int32).contiguous(), BINS, H, W)
+            out[key] = grid.permute(0, 2, 3, 1)
+        return out
 
-    return [
-        {
-            "name": "voxel_scatter", "route": "cuda",
-            "source": "eemflow_tpu_torch/kernels/csrc/voxel_scatter.cu",
-            "replaces": "eemflow_tpu/ops/pallas/voxel_scatter.py:101",
-            "launches": launches["voxel_scatter"], "max_abs_err": errs["voxel_scatter"],
-            "ms": k1_ms, "wrapper_ms": k1_wrapper, "plain_ms": k1_plain,
-            "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": k1_lib,
-            "standard_ms": None,
-        },
-        {
-            "name": "local_corr", "route": "cuda",
-            "source": "eemflow_tpu_torch/kernels/csrc/local_corr.cu",
-            "replaces": "eemflow_tpu/ops/pallas/local_corr.py:104",
-            "launches": launches["local_corr"], "max_abs_err": errs["local_corr"],
-            "ms": k2_ms, "wrapper_ms": k2_wrapper, "plain_ms": k2_plain,
-            "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-            "standard_ms": None,
-        },
-        k3_row,
-        k4_row,
-        k5_row,
-    ]
+    def measure(pr8: bool, reps: int = 20) -> float:
+        tester = Tester(model, device, preprocess=pr8_preprocess if pr8 else make_device_preprocess(BINS, H, W))
+        if pr8:
+            model._corrs = lambda p1, p2: yard.corrs(model, p1, p2)
+        try:
+            for _ in range(3):
+                tester.run_sample(sample)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                tester.run_sample(sample)
+            return (time.perf_counter() - t0) / reps * 1e3
+        finally:
+            if pr8:
+                del model._corrs
+
+    old_a, new_a, new_b, old_b = measure(True), measure(False), measure(False), measure(True)
+    new, old = (new_a + new_b) / 2, (old_a + old_b) / 2
+    say(f"whole eval sample, device voxelize (packed events from the host → K1 voxelize ×2 → forward, one K2 "
+        f"launch → flow on the host): {new:.3f} ms ({1e3 / new:.1f} fps; runs {new_a:.3f}, {new_b:.3f}); the replaced "
+        f"path (zero-fill + atomic scatter + normalize_voxel_grid ×2, three K2 calls and six copies): "
+        f"{old:.3f} ms ({1e3 / old:.1f} fps; runs {old_a:.3f}, {old_b:.3f}), alternated replaced, this, this, replaced")
 
 
 def times_k5(device, errs: dict, launches: dict) -> dict:
@@ -1151,10 +1523,10 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
 
         def standard_head():
             flows = [
-                dec(torch.cat([model._corr(a, b), rconv(a)], dim=1))
-                for a, b, rconv, dec in zip(pooled[0], pooled[1],
-                                            (model.rconv_1, model.rconv_2, model.rconv_3),
-                                            (model.decoder_1, model.decoder_2, model.decoder_3))
+                dec(torch.cat([cv, rconv(a)], dim=1))
+                for cv, a, rconv, dec in zip(model._corrs(pooled[0], pooled[1]), pooled[0],
+                                             (model.rconv_1, model.rconv_2, model.rconv_3),
+                                             (model.decoder_1, model.decoder_2, model.decoder_3))
             ]
             return model.out_conv(torch.cat(flows, dim=1))
 
@@ -1212,11 +1584,11 @@ def run(device: torch.device) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     dev_info = phase_device(device)
-    phase_build()
-    errs = phase_parity(device)
     with tempfile.TemporaryDirectory(prefix="eemflow_smoke_") as tmp:
+        yard = phase_build(tmp)
+        errs = phase_parity(device)
         launches = phase_end_to_end(device, tmp)
-        kernels = phase_times(device, tmp, errs, launches)
+        kernels = phase_times(device, tmp, errs, launches, yard)
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"kernels": kernels}))
     return dev_info

@@ -2,8 +2,8 @@
 (eval part of ``eemflow_tpu/data/device_input.py:40-160``).
 
 The host only reads and pads raw events to a fixed bucket; the scatter
-(kernel K1) and the normalization run on the device as the first part of
-the eval step.  Batch contract (the datasets' raw-event mode):
+and the normalization run on the device as the first part of the eval
+step, as one call of kernel K1 (``voxelize``) per frame.  Batch contract (the datasets' raw-event mode):
 ``events_old``/``events_new`` [B, bucket, 4] float32 (t, x, y, p),
 time-sorted, relative timestamps; ``n_old``/``n_new`` [B] int32.  Flips
 and crops are train-only and come with the training slice.

@@ -9,10 +9,10 @@ out-of-frame events vote nothing.  Normalization works over the nonzero
 cells only: subtract the mean and divide by the sample std (ddof=1) when
 it is defined and positive.
 
-The scatter is kernel K1 on the card (``kernels/voxel_scatter.py``);
-``voxel_scatter_plain`` is its plain twin, used for CPU tensors.
-Normalization stays plain PyTorch ops after the kernel, as it is XLA code
-(not Pallas) in the JAX package.
+On the card the scatter, and with ``normalize=True`` the normalization
+too, is kernel K1 (``kernels/voxel_scatter.py``: ``voxel_scatter`` and
+``voxelize``), which writes the grid once; ``voxel_scatter_plain`` and
+``voxelize_plain`` are its plain twins, used for CPU tensors.
 """
 
 from __future__ import annotations
@@ -148,6 +148,14 @@ def normalize_voxel_grid(grid: torch.Tensor) -> torch.Tensor:
     return torch.where(nz, centred / denom.view(shape), grid)
 
 
+def voxelize_plain(
+    events: torch.Tensor, n_valid: torch.Tensor, num_bins: int, height: int, width: int
+) -> torch.Tensor:
+    """Plain PyTorch twin of K1's ``voxelize``: the normalized
+    [B, bins, H, W] grid."""
+    return normalize_voxel_grid(voxel_scatter_plain(events, n_valid, num_bins, height, width))
+
+
 def events_to_voxel_grid(
     events: torch.Tensor,
     n_valid,
@@ -158,14 +166,12 @@ def events_to_voxel_grid(
 ) -> torch.Tensor:
     """events: [N, 4] (t, x, y, p) float32, time-sorted, first n_valid real
     → [bins, H, W] float32 (counterpart of ``voxel.py:127-187``).  Goes
-    through the K1 wrapper: the kernel on the card, the twin on the CPU."""
-    from eemflow_tpu_torch.kernels.voxel_scatter import voxel_scatter
+    through K1: the kernel on the card, the twin on the CPU."""
+    from eemflow_tpu_torch.kernels.voxel_scatter import voxel_scatter, voxelize
 
     n = torch.as_tensor(n_valid, dtype=torch.int32, device=events.device).reshape(1)
-    grid = voxel_scatter(events[None].contiguous(), n, num_bins, height, width)
-    if normalize:
-        grid = normalize_voxel_grid(grid)
-    return grid[0]
+    fn = voxelize if normalize else voxel_scatter
+    return fn(events[None].contiguous(), n, num_bins, height, width)[0]
 
 
 def voxelize_batch_nhwc(
@@ -179,12 +185,10 @@ def voxelize_batch_nhwc(
     """[B, N, 4] + [B] → [B, H, W, bins] (NHWC, the model input layout;
     counterpart of ``voxel.py:415-447``).  The result is a permuted view of
     the NCHW grid, so the model's permute back to NCHW costs no copy."""
-    from eemflow_tpu_torch.kernels.voxel_scatter import voxel_scatter
+    from eemflow_tpu_torch.kernels.voxel_scatter import voxel_scatter, voxelize
 
-    grid = voxel_scatter(events.contiguous(), n_valid.to(torch.int32).contiguous(),
-                         num_bins, height, width)
-    if normalize:
-        grid = normalize_voxel_grid(grid)
+    fn = voxelize if normalize else voxel_scatter
+    grid = fn(events.contiguous(), n_valid.to(torch.int32).contiguous(), num_bins, height, width)
     return grid.permute(0, 2, 3, 1)
 
 

@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels of the port, built by plain ``nvcc`` into
 one C-ABI shared library (``build.py``) and bound with ``ctypes``.
 
-  * K1 ``voxel_scatter`` — event → voxel-grid scatter
+  * K1 ``voxel_scatter`` / ``voxelize`` — events → voxel grid, without or
+    with its normalization, the grid written once by tiles
     (replaces ``eemflow_tpu/ops/pallas/voxel_scatter.py`` ``voxel_scatter_pallas``);
-  * K2 ``local_corr`` — windowed local correlation
+  * K2 ``local_corr`` / ``local_corr_levels`` — windowed local correlation,
+    up to three levels in one launch
     (replaces ``eemflow_tpu/ops/pallas/local_corr.py`` ``local_correlation_pallas``);
   * K3 ``fused_convs_pool`` — a 3×3 conv chain + average pool on the
     tensor cores; chains it does not take run on its SIMT version, counted
@@ -54,3 +56,11 @@ def refuse_grad(name: str, *tensors) -> None:
             f"{name}: the kernel is eval-only and has no backward; call it under "
             "torch.no_grad() or torch.inference_mode(), or train on the standard path"
         )
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, the stream a
+    wrapper launches on, read without building a ``torch.cuda.Stream``
+    object (which costs a host-bound wrapper several microseconds a call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

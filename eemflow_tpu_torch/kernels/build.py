@@ -118,11 +118,14 @@ def build() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.voxel_scatter_launch.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.voxel_scatter_launch.restype = i
-    lib.local_corr_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
-    lib.local_corr_launch.restype = i
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.voxel_grid_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.voxel_grid_launch.restype = i
+    lib.voxel_grid_scratch_bytes.argtypes = [i, i, i, i, i]
+    lib.voxel_grid_scratch_bytes.restype = ctypes.c_longlong
+    lib.local_corr_levels_launch.argtypes = [p, p]
+    lib.local_corr_levels_launch.restype = i
+    lib.local_corr_args_size.restype = i
     lib.fused_convs_launch.argtypes = [p, p]
     lib.fused_convs_launch.restype = i
     lib.coarse_head_launch.argtypes = [p, p]

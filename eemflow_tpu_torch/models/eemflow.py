@@ -4,7 +4,8 @@ of ``eemflow_tpu/models/eemflow.py:1-175, 372-437``).
 Architecture (reference ``model/EEMFlow/EEMFlow.py:71-183``): a 3-stage
 stride-2 conv pyramid (bins→16→32→64, LeakyReLU 0.1); average pooling of
 each level to the coarse grid (32/16/8); per level a 53-channel local
-correlation (kernel K2 on the card) next to a 16-channel ``rconv``, then a
+correlation (kernel K2 on the card, the three levels in one launch that
+reads the pooled NCHW features in place) next to a 16-channel ``rconv``, then a
 7-conv grouped, channel-shuffled decoder; a 1×1 fuse of the three flows;
 one bilinear upsample (align_corners=False) of the coarse flow of the
 padded frame straight to (H, W), without unpadding — as the reference
@@ -50,7 +51,7 @@ from eemflow_tpu_torch.kernels import COMPUTE_DTYPES
 from eemflow_tpu_torch.kernels.fused_convs import fused_convs, pack_chain
 from eemflow_tpu_torch.models.layers import ConvRelu, channel_shuffle, conv2d
 from eemflow_tpu_torch.ops.coarse_head import IMPLS, HeadWeights, coarse_head
-from eemflow_tpu_torch.ops.correlation import local_correlation
+from eemflow_tpu_torch.ops.correlation import local_correlation_levels
 from eemflow_tpu_torch.ops.pack_cache import PackCache
 from eemflow_tpu_torch.ops.pad import InputPadder
 from eemflow_tpu_torch.ops.upsample import upsample_flow_to
@@ -213,13 +214,16 @@ class EEMFlow(nn.Module):
             "head", (), lambda: HeadWeights(dict(self.named_parameters()), self.groups)
         )
 
-    def _corr(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """NCHW pooled features → NCHW correlation through the NHWC op."""
-        cv = local_correlation(
-            a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1),
-            self.max_displacement, self.corr_indices,
+    def _corrs(self, p1, p2):
+        """The levels' NCHW pooled features → their NCHW correlations, all
+        three through one call of the NHWC op (counterpart of the JAX
+        forward's ``eemflow.py:325-331``): on the card one K2 launch that
+        reads the permuted views in place and writes channels-first."""
+        nhwc = lambda t: t.permute(0, 2, 3, 1)
+        cvs = local_correlation_levels(
+            [(nhwc(a), nhwc(b)) for a, b in zip(p1, p2)], self.max_displacement, self.corr_indices
         )
-        return cv.permute(0, 3, 1, 2)
+        return [cv.permute(0, 3, 1, 2) for cv in cvs]
 
     def forward(self, events1: torch.Tensor, events2: torch.Tensor, train: bool = False):
         B, H, W, _ = events1.shape
@@ -252,8 +256,8 @@ class EEMFlow(nn.Module):
         rconvs = (self.rconv_1, self.rconv_2, self.rconv_3)
         decoders = (self.decoder_1, self.decoder_2, self.decoder_3)
         flows = [
-            dec(torch.cat([self._corr(a, b), rconv(a)], dim=1))
-            for a, b, rconv, dec in zip(p1, p2, rconvs, decoders)
+            dec(torch.cat([cv, rconv(a)], dim=1))
+            for cv, a, rconv, dec in zip(self._corrs(p1, p2), p1, rconvs, decoders)
         ]
         out = self.out_conv(torch.cat(flows, dim=1))
         flow_up = upsample_flow_to(out.permute(0, 2, 3, 1), out_size)

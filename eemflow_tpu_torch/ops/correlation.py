@@ -10,9 +10,10 @@ the displacement (dy, dx) ∈ [-md, md]² at channel
 with zeros outside the frame; ``indices`` selects the displacements to
 compute (EEMFlow's 53-channel diamond).  Inputs and output are NHWC.
 
-``local_correlation`` sends a CPU tensor to the plain twin below and a
-CUDA tensor to the hand-written kernel ``kernels/local_corr.py`` (K2);
-there is no fallback from the card to the twin.
+``local_correlation`` (one level) and ``local_correlation_levels`` (up to
+three, one launch) send CPU tensors to the plain twin below and CUDA
+tensors to the hand-written kernel ``kernels/local_corr.py`` (K2); there
+is no fallback from the card to the twin.
 """
 
 from __future__ import annotations
@@ -63,3 +64,16 @@ def local_correlation(
     from eemflow_tpu_torch.kernels.local_corr import local_corr
 
     return local_corr(x, y, max_displacement, indices)
+
+
+def local_correlation_levels(
+    pairs: Sequence[tuple],
+    max_displacement: int = 4,
+    indices: Optional[Sequence[int]] = None,
+) -> list:
+    """NHWC local correlation of up to three (x, y) levels: one K2 launch
+    on the card (inputs read through their strides), the twin per level on
+    the CPU."""
+    from eemflow_tpu_torch.kernels.local_corr import local_corr_levels
+
+    return local_corr_levels(pairs, max_displacement, indices)

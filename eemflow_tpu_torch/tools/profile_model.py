@@ -5,7 +5,7 @@ call.
 
 Profiles either the forward on voxel grids already on the device, or, with
 ``--events N``, one whole device-voxelize eval sample (``Tester.run_sample``:
-packed events copied from the host, K1 scatter + normalization, forward,
+packed events copied from the host, K1 voxelize (scatter and normalization), forward,
 flow copied back) with N random events per frame in a 2^18 bucket.  The
 weights are random (timing does not depend on them).  Writes a Chrome
 trace to ``--logdir`` and prints one JSON line.

@@ -527,3 +527,124 @@ def test_eraft_on_card_matches_cpu(cuda, fused_update):
     assert launch_counts["update_block"] - before == (8 if fused_update else 0)
     assert got.shape == ref.shape == (1, 1, 72, 104, 2)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _k1_events(rng, n_valid, N, h, w, pixel=None, dt_zero=()):
+    ev = np.zeros((len(n_valid), N, 4), np.float32)
+    for b, n in enumerate(n_valid):
+        ev[b, :n, 0] = 7.0 if b in dt_zero else np.sort(rng.uniform(0, 5e4, n))
+        ev[b, :n, 1] = rng.integers(-2, w + 2, n) if pixel is None else pixel[0]
+        ev[b, :n, 2] = rng.integers(-2, h + 2, n) if pixel is None else pixel[1]
+        ev[b, :n, 3] = rng.integers(0, 2, n)
+    return ev, np.asarray(n_valid, np.int32)
+
+
+# (n_valid, N, bins, H, W, fixed pixel, samples with ΔT == 0)
+K1_CASES = {
+    "main": ((60_000, 40_000), 1 << 16, 5, 180, 320, None, (1,)),
+    "n_valid_0_and_1": ((0, 1), 512, 5, 64, 96, None, ()),
+    "out_of_frame": ((5_000, 300), 8192, 5, 64, 96, (96 + 3, 4), ()),
+    "one_pixel": ((20_000, 9_000), 1 << 15, 5, 64, 96, (7, 9), ()),
+    "ragged_bins15": ((3_000, 5_000), 8192, 15, 45, 77, None, ()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K1_CASES))
+def test_voxelize_and_voxel_scatter_kernels_match_plain(cuda, case):
+    """K1's two entry points against their plain versions: voxel_scatter
+    within 1e-5 of the largest cell, voxelize within 1e-5 of max(1,
+    largest) (shared-memory atomics and the statistics sum in another
+    order); one count a call."""
+    from eemflow_tpu_torch.events.voxel import voxelize_plain
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import voxel_scatter as k1
+
+    n_valid, N, bins, h, w, pixel, dt_zero = K1_CASES[case]
+    ev, nv = _k1_events(np.random.default_rng(sorted(K1_CASES).index(case)), n_valid, N, h, w, pixel, dt_zero)
+    e, n = torch.from_numpy(ev).to(cuda), torch.from_numpy(nv).to(cuda)
+    before = launch_counts["voxel_scatter"]
+    raw = k1.voxel_scatter(e, n, bins, h, w)
+    norm = k1.voxelize(e, n, bins, h, w)
+    assert launch_counts["voxel_scatter"] == before + 2
+    ref_raw = k1.plain(e, n, bins, h, w)
+    ref_norm = voxelize_plain(e, n, bins, h, w)
+    torch.cuda.synchronize()
+    assert float((raw - ref_raw).abs().max()) <= 1e-5 * float(ref_raw.abs().max())
+    assert _max_rel_err(norm, ref_norm) <= 1e-5
+
+
+def test_voxel_kernels_write_every_cell(cuda):
+    """The grid comes from torch.empty: every cell, zeros included, is the
+    kernel's (memory the allocator hands back full of NaN shows none)."""
+    from eemflow_tpu_torch.kernels import voxel_scatter as k1
+
+    ev, nv = _k1_events(np.random.default_rng(5), (300, 0), 1024, 70, 90)
+    e, n = torch.from_numpy(ev).to(cuda), torch.from_numpy(nv).to(cuda)
+    for fn in (k1.voxel_scatter, k1.voxelize):
+        junk = torch.full((2, 5, 70, 90), float("nan"), device=cuda)
+        del junk
+        grid = fn(e, n, 5, 70, 90)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(grid).all()) and not grid[1].any()
+
+
+@pytest.mark.parametrize("batch", [1, 2], ids=["B1", "B2"])
+def test_local_corr_levels_matches_plain_on_strided_views(cuda, batch):
+    """One launch over three levels read through the strides of permuted
+    NCHW views (as EEMFlow's pooled features), each output channels-first,
+    against the plain version level by level; and on NHWC inputs."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+
+    rng = np.random.default_rng(20 + batch)
+    for nchw in (True, False):
+        pairs = []
+        for c, h, w in ((16, 12, 20), (32, 12, 20), (64, 12, 20)):
+            shape = (batch, c, h, w) if nchw else (batch, h, w, c)
+            t = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda) for _ in range(2)]
+            pairs.append(tuple(x.permute(0, 2, 3, 1) for x in t) if nchw else tuple(t))
+        before = launch_counts["local_corr"]
+        got = k2.local_corr_levels(pairs, 4, INDEX_53)
+        assert launch_counts["local_corr"] == before + 1
+        for (x, y), g in zip(pairs, got):
+            ref = k2.plain(x, y, 4, INDEX_53)
+            torch.cuda.synchronize()
+            assert g.shape == ref.shape and g.permute(0, 3, 1, 2).is_contiguous()
+            assert float((g - ref).abs().max()) <= 1e-5
+
+
+def test_eemflow_forward_takes_one_k2_launch_and_no_copy(cuda):
+    """The standard forward computes its three correlations in one K2
+    launch, on the pooled features' permuted views: the correlation step
+    runs that one kernel and nothing else (no copies)."""
+    import os
+
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eemflow_hrem_golden.pth.tar")
+    model = get_eval_model("eemflow")
+    model.load_state_dict(to_state_dict(load_torch_checkpoint(ckpt)))
+    model.to(cuda)
+    rng = np.random.default_rng(12)
+    ev1, ev2 = (torch.from_numpy(rng.standard_normal((2, 192, 256, 5)).astype(np.float32)).to(cuda) for _ in range(2))
+    with torch.inference_mode():
+        before = launch_counts["local_corr"]
+        model(ev1, ev2)
+        assert launch_counts["local_corr"] == before + 1
+        p1 = model.pyramid(ev1.permute(0, 3, 1, 2).contiguous())
+        p2 = model.pyramid(ev2.permute(0, 3, 1, 2).contiguous())
+        model._corrs(p1, p2)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            cvs = model._corrs(p1, p2)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "local_corr" in kernels[0], kernels
+    for a, b, cv in zip(p1, p2, cvs):
+        assert cv.is_contiguous()  # NCHW, as the decoder's concatenation reads it
+        ref = k2.plain(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), 4, model.corr_indices).permute(0, 3, 1, 2)
+        assert float((cv - ref).abs().max()) <= 1e-5
