@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port (``eemflow_tpu_torch``) on one
 NVIDIA GPU: the quickest proof that the port builds, is right and runs
-its main path on the card.
+its main paths on the card.
 
     python3 chip_smoke.py
 
@@ -11,25 +11,25 @@ where it stopped:
   0. device: the card's name, the device count, and the card's name and
      power limit as ``nvidia-smi`` reports them;
   1. build: the kernels' ``nvcc`` calls, one per source, all started
-     together with one more for the yardstick (the K1 and K2 kernels as
-     they were before their redesign, kept in this script only, to time
-     the redesign against) (seconds, and the ``-Xptxas -v`` lines:
-     registers and spills of each kernel);
+     together (seconds, and the ``-Xptxas -v`` lines: registers and spills
+     of each kernel);
   2. each kernel against its plain PyTorch twin at the main paths' shapes
      (K1 ``voxel_scatter`` and ``voxelize`` on the main path's batch and
      the edge cases: n_valid 0 and 1, every event out of frame, every event
      on one pixel, a frame that is not whole tiles, 15 bins; K2 local
      correlation, ``local_corr_levels`` on the permuted views of the
-     forward's pooled levels at B=1 and 2, and K2's backward, K3 fused
-     conv chain + pool at the three 720×1280 pyramid levels for B=1 and
-     2, in float32 and in bf16 (the tensor-core kernel), on a ragged NHWC
-     view, and on a small concat chain (its SIMT version); K4 coarse head
-     at the three 12×20 levels for B=1 and 2, groups 5 and 1, at both
-     cluster sizes, and at an 8×15 grid and a grid that takes the
-     device-memory scratch; K5 update block,
-     both entry points, at ERAFT's 92×160 and 64×120 grids and an odd
-     28×12 one, in float32 and bf16, with He-scaled random weights), with
-     the tolerance stated;
+     forward's pooled levels in float32 at B=1 and 2 and on bf16 operands
+     (the training forward's mixed precision) at B=1 and 6, and K2's
+     backward, one level (``LocalCorr``) and three in one launch
+     (``LocalCorrLevels``, float32 and bf16); K3 fused conv chain + pool at
+     the three 720×1280 pyramid levels for B=1 and 2, in float32 and in
+     bf16 (the tensor-core kernel), on a ragged NHWC view, and on a small
+     concat chain (its SIMT version); K4 coarse head at the three 12×20
+     levels for B=1 and 2, groups 5 and 1, at both cluster sizes, and at an
+     8×15 grid and a grid that takes the device-memory scratch; K5 update
+     block, both entry points, at ERAFT's 92×160 and 64×120 grids and an
+     odd 28×12 one, in float32 and bf16, with He-scaled random weights),
+     with the tolerance stated;
   3. end to end: the port's HREM eval CLI at 720×1280 on the seed-99
      synthetic split with the golden checkpoints, each path's launch
      counts set to 0 just before it and read just after: EEMFlow on the
@@ -42,37 +42,49 @@ where it stopped:
      copied into another layout) and with bf16 operands; the golden AEEs,
      the agreement of the paths, and small forwards on the card against
      the same forwards on the CPU;
+  3b. train: the port's HREM training CLI on a seeded synthetic train split
+     at 720×1280 (six samples, B=6, ``--device_voxelize``, two epochs of
+     two steps), in bf16 (the default config) and in float32, each with
+     its launch counts set to 0 just before it and read just after (K1
+     ``voxelize`` two calls and K2 one launch a step), finite losses in
+     ``metrics.jsonl`` and a checkpoint each epoch; a ``-se 1`` resume
+     that continues the step and the learning rate; one float32 train
+     step at 128×256, B=2, on the card against the CPU (loss and every
+     gradient); 20 bf16 steps on one batch lowering its loss;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
-     twin, the library yardstick and, for K3, K4 and K5, the port's
-     standard path for the same work; K1 (both entry points, 2·10^5 and
-     30,000 events a frame) and K2 (the correlation step of a forward, its
-     launches and copy kernels) beside the paths they replaced (for K3 and K5 also each kernel
-     instance's registers, spills and occupancy, and their bounds: split
-     TF32 at the TF32 peak for float32, bf16 at the bf16 peak, beside the
-     float32 SIMT figure; for K4 its registers, spills and clusters, at
-     both cluster sizes; K3's timed launches held against the twin on the
-     forward's own inputs, and a store probe: levels 1 and 2 timed again
-     writing the pooled output alone); one 720×1280 B=1 EEMFlow forward in
-     the standard mode (also with the earlier K2 step) and in the fused
-     modes; one whole device-voxelize eval sample against the earlier K1
-     and K2 path; the ERAFT forward at 720×1280 and 512×960, B=1, on the
-     module path and with ``fused_update``.
+     twin, the library call where there is one and, for K3, K4 and K5, the
+     port's standard path for the same work; K1 (both entry points, 2·10^5
+     and 30,000 events a frame), K2 (the correlation step of a forward,
+     its launches and copy kernels; in bf16 at B=1 and 6) (for K3 and K5
+     also each kernel instance's registers, spills and occupancy, and
+     their bounds: split TF32 at the TF32 peak for float32, bf16 at the
+     bf16 peak, beside the float32 SIMT figure; for K4 its registers,
+     spills and clusters, at both cluster sizes; K3's timed launches held
+     against the twin on the forward's own inputs, and a store probe:
+     levels 1 and 2 timed again writing the pooled output alone); one
+     720×1280 B=1 EEMFlow forward in the standard and the fused modes; one
+     whole device-voxelize eval sample; the ERAFT forward at 720×1280 and
+     512×960, B=1, on the module path and with ``fused_update``; one
+     720×1280 B=6 train step (device voxelize) in bf16 and float32, back to
+     back, the device's busy time and share of one profiled run, and its
+     peak memory.
 
-Then one JSON line of every ported kernel (``ms`` is device time; for K1
-``voxel_scatter`` at 2·10^5 events a frame, with ``voxelize_*`` and
-``*_30k`` beside it; for K2 the three levels of a forward; for K3
-and K4 with the L2 cache flushed before each call, as a forward leaves
-their weights, and ``warm_ms`` without the flush; for K5 one pair of
-calls, one iteration, at the 92×160 grid; ``wrapper_ms`` the time per
-wrapper call back to back; ``standard_ms`` the device time of the
-standard path that K3, K4 or K5 replaces; ``yardstick_*`` the K1 and K2
-paths before their redesign), and as the last line
-``{"ok": true, "device": {...}}``.  Any fault exits non-zero without the
-``ok`` line, as does a machine without CUDA.  Synthetic data goes to a
-temporary directory outside the repository.  Parity phases run float32
-convolutions and matmuls in full float32 (TF32 off).
+Then one JSON line of the train step's times (``{"train_step": ...}``), one
+of every ported kernel (``ms`` is device time; for K1 ``voxel_scatter`` at
+2·10^5 events a frame, with ``voxelize_*`` and ``*_30k`` beside it; for K2
+the three levels of a B=1 forward, float32, ``bf16_*`` on bf16 operands
+(``_b6`` at B=6); for K3 and K4 with the L2 cache flushed before each call,
+as a forward leaves their weights, and ``warm_ms`` without the flush; for
+K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
+the time per wrapper call back to back; ``standard_ms`` the device time of
+the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
+for K1 and K2), and as the last line ``{"ok": true, "device": {...}}``.
+Any fault exits non-zero without the ``ok`` line, as does a machine
+without CUDA.  Synthetic data goes to a temporary directory outside the
+repository.  Parity phases run float32 convolutions and matmuls in full
+float32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -107,6 +119,10 @@ K1_TOL_REL = 1e-5  # of the largest cell: atomics sum in no fixed order
 # (float64) than the plain version's two-pass float32
 K1_VOXELIZE_TOL = 1e-5
 K2_TOL = 1e-5
+# K2 on bf16 operands, relative to max(1, largest |plain|): both sum the
+# float32 products of the same bf16 operands and round once to bf16, in
+# another order, so a result can round to the neighbouring bf16 value
+K2_BF16_TOL = 5e-3
 # relative to max(1, largest |twin|): float32 differs in summation order
 # only; in bf16 both sides round the same operands, but an intermediate that
 # differs in its last float32 bit can round to the neighbouring bf16 value
@@ -252,6 +268,28 @@ def make_hrem_fixture(base: str, seed: int = 99, n_events: int = 30000) -> str:
     return root
 
 
+def make_hrem_train_fixture(base: str, n_samples: int = 6, seed: int = 5, n_events: int = 30000) -> str:
+    """A synthetic HREM training split, ``train/dt1/<name>/{events1.npz,
+    events2.npz, flow.flo}`` at 1280×720, drawn from ``seed``."""
+    from eemflow_tpu_torch.events.io import write_flo
+
+    rng = np.random.default_rng(seed)
+    root = os.path.join(base, "hrem_train")
+    for i in range(n_samples):
+        d = os.path.join(root, "train", "dt1", f"{i:05d}")
+        os.makedirs(d, exist_ok=True)
+        for name in ("events1.npz", "events2.npz"):
+            np.savez(
+                os.path.join(d, name),
+                x=rng.integers(0, W, n_events).astype(np.int32),
+                y=rng.integers(0, H, n_events).astype(np.int32),
+                t=np.sort(rng.integers(0, 10**9, n_events)).astype(np.int64),
+                p=rng.integers(0, 2, n_events).astype(np.int8),
+            )
+        write_flo((rng.standard_normal((H, W, 2)) * 2).astype(np.float32), os.path.join(d, "flow.flo"))
+    return root
+
+
 def k1_batch(rng, n_valid, N: int = 1 << 18, dt_zero=(), h: int = H, w: int = W, pixel=None):
     """[B, N, 4] padded event rows: sorted relative µs timestamps, x/y
     drawn two pixels past every edge of an h×w frame (out-of-frame events)
@@ -265,158 +303,6 @@ def k1_batch(rng, n_valid, N: int = 1 << 18, dt_zero=(), h: int = H, w: int = W,
         ev[b, :n, 2] = rng.integers(-2, h + 2, n) if pixel is None else pixel[1]
         ev[b, :n, 3] = rng.integers(0, 2, n)
     return ev, np.asarray(n_valid, np.int32)
-
-
-# The kernels K1 and K2 were before their redesign, kept here only as the
-# yardstick the redesign is timed against in the same run: K1 as a zero-fill
-# and one thread per event with two global atomicAdds, K2 as one thread per
-# output over NHWC-contiguous inputs (the wrapper copied EEMFlow's permuted
-# views), one launch per level.
-YARDSTICK_CU = r"""
-#include <cuda_runtime.h>
-
-__global__ void yardstick_voxel_scatter_kernel(const float4* __restrict__ events, const int* __restrict__ n_valid,
-                                               float* __restrict__ grid, int N, int bins, int H, int W) {
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int nv = min(n_valid[b], N);
-  if (i >= nv) return;
-  const float4* ev = events + (size_t)b * N;
-  const float4 e = ev[i];
-  const float t0 = ev[0].x;
-  float dT = __fsub_rn(ev[nv - 1].x, t0);
-  if (dT == 0.0f) dT = 1.0f;
-  const float ts = __fdiv_rn(__fmul_rn((float)(bins - 1), __fsub_rn(e.x, t0)), dT);
-  const float tis = floorf(ts);
-  const float dts = __fsub_rn(ts, tis);
-  const int x = (int)e.y;
-  const int y = (int)e.z;
-  if (x < 0 || x >= W || y < 0 || y >= H || !(tis >= 0.0f)) return;
-  const float pol = (e.w == 0.0f) ? -1.0f : e.w;
-  const size_t hw = (size_t)H * W;
-  float* cell = grid + (size_t)b * bins * hw + (size_t)y * W + x;
-  if (tis < (float)bins) atomicAdd(cell + (size_t)tis * hw, __fmul_rn(pol, __fsub_rn(1.0f, dts)));
-  if (__fadd_rn(tis, 1.0f) < (float)bins) atomicAdd(cell + ((size_t)tis + 1) * hw, __fmul_rn(pol, dts));
-}
-
-extern "C" int yardstick_voxel_scatter_launch(const float* events, const int* n_valid, float* grid, int B, int N,
-                                              int bins, int H, int W, cudaStream_t stream) {
-  if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  yardstick_voxel_scatter_kernel<<<dim3((N + 255) / 256, B), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(events), n_valid, grid, N, bins, H, W);
-  return (int)cudaGetLastError();
-}
-
-__global__ void yardstick_local_corr_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                                            const int* __restrict__ idx, float* __restrict__ out, long long total,
-                                            int H, int W, int C, int K, int md, float inv_c) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= total) return;
-  const int j = (int)(o % K);
-  const long long p = o / K;
-  const int xx = (int)(p % W);
-  const long long q = p / W;
-  const int yy = (int)(q % H);
-  const long long b = q / H;
-  const int win = 2 * md + 1;
-  const int ch = idx[j];
-  const int y2 = yy + ch / win - md;
-  const int x2 = xx + ch % win - md;
-  float acc = 0.0f;
-  if (y2 >= 0 && y2 < H && x2 >= 0 && x2 < W) {
-    const float* xp = x + p * C;
-    const float* yp = y + ((b * H + y2) * W + x2) * C;
-    for (int c = 0; c < C; ++c) acc = fmaf(xp[c], yp[c], acc);
-  }
-  out[o] = acc * inv_c;
-}
-
-extern "C" int yardstick_local_corr_launch(const float* x, const float* y, const int* idx, float* out, int B, int H,
-                                           int W, int C, int K, int md, float inv_c, cudaStream_t stream) {
-  const long long total = (long long)B * H * W * K;
-  if (total <= 0) return (int)cudaSuccess;
-  yardstick_local_corr_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(x, y, idx, out, total, H, W, C,
-                                                                                   K, md, inv_c);
-  return (int)cudaGetLastError();
-}
-"""
-
-
-class Yardstick:
-    """The K1 and K2 call sequences the redesign replaced, on the kernels
-    above: built by one ``nvcc`` started beside the port's build."""
-
-    def __init__(self, tmp: str):
-        from eemflow_tpu_torch.kernels import build
-
-        src = os.path.join(tmp, "yardstick.cu")
-        with open(src, "w") as f:
-            f.write(YARDSTICK_CU)
-        self.path = os.path.join(tmp, "yardstick.so")
-        self.proc = subprocess.Popen(
-            [build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-shared", "-o", self.path, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        self.lib = None
-
-    def load(self) -> None:
-        import ctypes
-
-        out, _ = self.proc.communicate(timeout=600)
-        require(self.proc.returncode == 0, f"the yardstick kernels did not build:\n{out}")
-        lib = ctypes.CDLL(self.path)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.yardstick_voxel_scatter_launch.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.yardstick_local_corr_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
-        self.lib = lib
-        self.idx = {}
-
-    def voxel_scatter(self, events, n_valid, bins, h, w):
-        """The replaced K1 wrapper: a zero-filled grid, then the atomic scatter."""
-        import ctypes
-
-        B, N, _ = events.shape
-        grid = torch.zeros((B, bins, h, w), dtype=torch.float32, device=events.device)
-        rc = self.lib.yardstick_voxel_scatter_launch(
-            events.data_ptr(), n_valid.data_ptr(), grid.data_ptr(), B, N, bins, h, w,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        require(rc == 0, f"yardstick voxel scatter failed to launch ({rc})")
-        return grid
-
-    def voxelize(self, events, n_valid, bins, h, w):
-        """The replaced device-voxelize step: the scatter, then
-        ``normalize_voxel_grid``'s tensor ops."""
-        from eemflow_tpu_torch.events.voxel import normalize_voxel_grid
-
-        return normalize_voxel_grid(self.voxel_scatter(events, n_valid, bins, h, w))
-
-    def local_corr(self, x, y, md, indices):
-        """The replaced K2 wrapper: NHWC copies of both inputs, one launch."""
-        import ctypes
-
-        x = x.contiguous()
-        y = y.contiguous()
-        B, h, w, C = x.shape
-        key = (tuple(indices), x.device)
-        if key not in self.idx:
-            self.idx[key] = torch.tensor(indices, dtype=torch.int32, device=x.device)
-        idx = self.idx[key]
-        out = torch.empty((B, h, w, len(indices)), dtype=torch.float32, device=x.device)
-        rc = self.lib.yardstick_local_corr_launch(
-            x.data_ptr(), y.data_ptr(), idx.data_ptr(), out.data_ptr(), B, h, w, C, len(indices), md,
-            float(np.float32(1.0 / C)), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        require(rc == 0, f"yardstick local correlation failed to launch ({rc})")
-        return out
-
-    def corrs(self, model, p1, p2):
-        """The replaced standard-forward correlation step: one call a level on
-        permuted views of the pooled NCHW features, NCHW views out."""
-        return [
-            self.local_corr(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), model.max_displacement,
-                            model.corr_indices).permute(0, 3, 1, 2)
-            for a, b in zip(p1, p2)
-        ]
 
 
 def conv_params(rng, cins, couts, device):
@@ -507,12 +393,11 @@ def phase_device(device: torch.device) -> dict:
     return {"platform": "gpu", "kind": name, "count": count}
 
 
-def phase_build(tmp: str) -> "Yardstick":
+def phase_build() -> None:
     from eemflow_tpu_torch.kernels import build
 
     phase("1 build")
     t0 = time.perf_counter()
-    yard = Yardstick(tmp)  # its nvcc runs beside the port's
     build.load()
     lib = os.path.relpath(build.library_path(), REPO)
     if build.build_log:
@@ -524,10 +409,6 @@ def phase_build(tmp: str) -> "Yardstick":
     for line in build.build_log.splitlines():
         if "ptxas" in line or "spill" in line:
             say(line.strip())
-    yard.load()
-    say(f"built the yardstick (the K1 and K2 kernels before their redesign, timed against it) by one more nvcc "
-        f"beside the port's; all built in {time.perf_counter() - t0:.1f} s")
-    return yard
 
 
 def ptxas_lines(name: str) -> list:
@@ -564,13 +445,14 @@ def phase_parity(device: torch.device) -> dict:
         say(f"K2 local_corr {list(shape)} K=53: max|Δ| {err:.3e} (tolerance {K2_TOL:g})")
         require(tuple(got.shape) == shape[:3] + (53,) and err <= K2_TOL,
                 f"K2 disagrees with its twin at {shape}")
-    k2_err = max(k2_err, phase_parity_k2_levels(device, rng))
+    levels_err, k2_bf16_err = phase_parity_k2_levels(device, rng)
+    k2_err = max(k2_err, levels_err)
     phase_parity_k2_backward(device, rng)
     k3_err = phase_parity_k3(device, rng)
     k4_err = phase_parity_k4(device, rng)
     k5_err = phase_parity_k5(device, rng)
-    return {"voxel_scatter": k1_err, "voxelize": voxelize_err, "local_corr": k2_err, "fused_convs_pool": k3_err,
-            "coarse_head": k4_err, "update_block": k5_err}
+    return {"voxel_scatter": k1_err, "voxelize": voxelize_err, "local_corr": k2_err, "local_corr_bf16": k2_bf16_err,
+            "fused_convs_pool": k3_err, "coarse_head": k4_err, "update_block": k5_err}
 
 
 def phase_parity_k1(device: torch.device, rng):
@@ -624,10 +506,12 @@ def forward_pooled(model, batch: int, device, seed: int):
         return model.pyramid(ev1), model.pyramid(ev2)
 
 
-def phase_parity_k2_levels(device: torch.device, rng) -> float:
+def phase_parity_k2_levels(device: torch.device, rng):
     """``local_corr_levels`` on the permuted NCHW views of the forward's
-    three pooled levels (golden weights) at B=1 and 2, against the plain
-    version level by level; each result channels-first in memory."""
+    three pooled levels (golden weights) against the plain version level by
+    level, each result channels-first in memory: float32 at B=1 and 2, and
+    bf16 operands (the training forward's mixed precision) at B=1 and 6.
+    Returns the largest float32 and bf16 differences."""
     from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
     from eemflow_tpu_torch.kernels import launch_counts
     from eemflow_tpu_torch.kernels import local_corr as k2
@@ -636,10 +520,10 @@ def phase_parity_k2_levels(device: torch.device, rng) -> float:
     model = get_eval_model("eemflow")
     model.load_state_dict(to_state_dict(load_torch_checkpoint(GOLDEN_CKPT)))
     model.to(device)
-    worst = 0.0
-    for batch in (1, 2):
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype, batch in ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1), (torch.bfloat16, 6)):
         p1, p2 = forward_pooled(model, batch, device, seed=10 + batch)
-        pairs = [(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1)) for a, b in zip(p1, p2)]
+        pairs = [(a.to(dtype).permute(0, 2, 3, 1), b.to(dtype).permute(0, 2, 3, 1)) for a, b in zip(p1, p2)]
         before = launch_counts["local_corr"]
         with torch.inference_mode():
             got = k2.local_corr_levels(pairs, model.max_displacement, model.corr_indices)
@@ -647,20 +531,25 @@ def phase_parity_k2_levels(device: torch.device, rng) -> float:
         for (x, y), g in zip(pairs, got):
             ref = k2.plain(x, y, model.max_displacement, model.corr_indices)
             torch.cuda.synchronize()
-            err = float((g - ref).abs().max())
-            worst = max(worst, err)
-            say(f"K2 local_corr_levels B={batch} level {list(x.shape)} (a permuted NCHW view of the forward's "
-                f"pooled level): max|Δ| {err:.3e} (tolerance {K2_TOL:g}); output channels-first: "
+            err, scale = rel_err(g.float(), ref.float())
+            worst[dtype] = max(worst[dtype], err)
+            tol = K2_TOL if dtype == torch.float32 else K2_BF16_TOL * scale
+            say(f"K2 local_corr_levels {str(dtype)[6:]} B={batch} level {list(x.shape)} (a permuted NCHW view of "
+                f"the forward's pooled level): max|Δ| {err:.3e} (tolerance {tol:.3e}); output channels-first: "
                 f"{g.permute(0, 3, 1, 2).is_contiguous()}")
-            require(tuple(g.shape) == tuple(ref.shape) and err <= K2_TOL and g.permute(0, 3, 1, 2).is_contiguous(),
-                    f"local_corr_levels disagrees with the plain version at B={batch}, {list(x.shape)}")
-    return worst
+            require(tuple(g.shape) == tuple(ref.shape) and g.dtype == dtype and err <= tol
+                    and g.permute(0, 3, 1, 2).is_contiguous(),
+                    f"local_corr_levels disagrees with the plain version ({dtype}, B={batch}, {list(x.shape)})")
+    return worst[torch.float32], worst[torch.bfloat16]
 
 
 def phase_parity_k2_backward(device: torch.device, rng) -> None:
     """K2 as an autograd.Function on the card: the kernel's forward, the
     twin's autograd as its backward; the grads against plain autograd
-    through the twin on the same inputs."""
+    through the twin on the same inputs: ``LocalCorr`` (one level), and
+    ``LocalCorrLevels`` (the three levels, one launch, as a training forward
+    takes it) in float32 and bf16."""
+    from eemflow_tpu_torch.kernels import launch_counts
     from eemflow_tpu_torch.kernels import local_corr as k2
     from eemflow_tpu_torch.models.eemflow import INDEX_53
 
@@ -678,6 +567,26 @@ def phase_parity_k2_backward(device: torch.device, rng) -> None:
     say(f"K2 local_corr backward {list(shape)} K=53 (kernel forward, twin's autograd backward): "
         f"grads max|Δ| {err:.3e} against autograd through the twin (tolerance {K2_GRAD_TOL:g})")
     require(err <= K2_GRAD_TOL, "K2's grads on the card disagree with the twin's")
+    for dtype in (torch.float32, torch.bfloat16):
+        xs, ys = ([torch.from_numpy(rng.standard_normal((6, 12, 20, c)).astype(np.float32)).to(device).to(dtype)
+                   .requires_grad_() for c in HEAD_CHANNELS] for _ in range(2))
+        before = launch_counts["local_corr"]
+        outs = k2.local_corr_levels(list(zip(xs, ys)), 4, INDEX_53)
+        require(launch_counts["local_corr"] == before + 1
+                and all(isinstance(o.grad_fn, k2.LocalCorrLevels._backward_cls) for o in outs),
+                "K2's three levels under grad did not take one LocalCorrLevels launch")
+        gs = [torch.randn_like(o) for o in outs]
+        got = torch.autograd.grad(outs, xs + ys, gs)
+        x2, y2 = ([t.detach().requires_grad_() for t in ts] for ts in (xs, ys))
+        ref = torch.autograd.grad([k2.plain(a, b, 4, INDEX_53) for a, b in zip(x2, y2)], x2 + y2, gs)
+        torch.cuda.synchronize()
+        errs = [rel_err(a.float(), b.float()) for a, b in zip(got, ref)]
+        tol = K2_GRAD_TOL if dtype == torch.float32 else K2_BF16_TOL
+        worst = max(e / (1.0 if dtype == torch.float32 else sc) for e, sc in errs)
+        say(f"K2 LocalCorrLevels backward, B=6, the three 12x20 levels (C=16/32/64), {str(dtype)[6:]}: 1 launch; "
+            f"grads max|Δ| {max(e for e, _ in errs):.3e} ({worst:.3e} of the tolerance's unit; tolerance {tol:g}"
+            f"{'' if dtype == torch.float32 else '·max(1, |plain grad|)'}) against autograd through the twin")
+        require(worst <= tol, f"LocalCorrLevels' grads on the card disagree with the twin's ({dtype})")
 
 
 def k5_block(rng, device):
@@ -1009,36 +918,270 @@ def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
     return {"update_block": counts["fused_update"]["update_block"]}
 
 
-def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict, yard: Yardstick) -> list:
+TRAIN_BATCH = 6  # the config's bs
+TRAIN_STEPS, TRAIN_EPOCH = 4, 2  # --train_iters, --val_iters: two epochs, two checkpoints
+# one float32 train step at 128x256 B=2, the card against the CPU: the loss
+# relative, each parameter's gradient relative to its largest |g| (float32
+# in other summation orders through two pyramids and their backward)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+
+
+def train_config(tmp: str, mixed_precision: bool) -> str:
+    """The default training config, or a copy of it with ``mixed_precision``
+    set otherwise."""
+    path = os.path.join(REPO, "configs", "hrem_meshflow.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    if cfg["train"]["mixed_precision"] == mixed_precision:
+        return path
+    cfg["train"]["mixed_precision"] = mixed_precision
+    path = os.path.join(tmp, f"hrem_meshflow_mp{int(mixed_precision)}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train(device: torch.device, tmp: str) -> dict:
+    """The port's training CLI on a seeded synthetic HREM train split at
+    720x1280: B=6, device voxelize, two epochs of two steps, in bf16 (the
+    default config) with a ``-se 1`` resume, and in float32; each run's
+    launch counts set to 0 just before it and read just after.  Then one
+    train step on the card against the same step on the CPU, and 20 steps
+    on one batch."""
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.tools.train_hrem import main as train_hrem
+
+    phase("3b train: the HREM training CLI at 720x1280, B=6, device voxelize")
+    root = make_hrem_train_fixture(tmp, n_samples=TRAIN_BATCH)
+    common = ["--data_root", root, "-bs", str(TRAIN_BATCH), "--device_voxelize", "--train_iters",
+              str(TRAIN_STEPS), "--val_iters", str(TRAIN_EPOCH), "--device", str(device)]
+    per_step = {}
+    states = {}
+    for label, mp in (("bf16 (default config)", True), ("float32", False)):
+        save = os.path.join(tmp, f"train_{int(mp)}")
+        args = common + ["--config", train_config(tmp, mp), "--save_dir", save]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_hrem(args)
+        counts = dict(launch_counts)
+        run = os.path.join(save, "eemflow_dt1_lr1e-05_wd0.0")
+        recs = read_jsonl(os.path.join(run, "metrics.jsonl"))
+        ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+        say(f"train CLI {label}: {TRAIN_STEPS} steps in {time.perf_counter() - t0:.1f} s; step {state.step}, next "
+            f"lr {state.opt.lr:.6e}; epochs {[(r['epoch'], r['n_steps'], r['mean_loss']) for r in recs]}; "
+            f"checkpoints {ckpts}; launches {counts}")
+        require(state.step == TRAIN_STEPS and ckpts == ["epoch_1.pt", "epoch_2.pt"]
+                and [r["kind"] for r in recs] == ["epoch", "epoch"]
+                and all(np.isfinite(r["mean_loss"]) and np.isfinite(r["mean_aee"]) for r in recs),
+                f"the {label} training run did not take its steps, log finite losses and checkpoint each epoch")
+        require(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+                f"the {label} run's master parameters are not finite float32")
+        require(counts["voxel_scatter"] == 2 * TRAIN_STEPS and counts["local_corr"] == TRAIN_STEPS,
+                f"{label}: {counts['voxel_scatter']} K1 calls and {counts['local_corr']} K2 launches in "
+                f"{TRAIN_STEPS} steps, not 2 and 1 a step")
+        per_step[label] = (counts["voxel_scatter"] / TRAIN_STEPS, counts["local_corr"] / TRAIN_STEPS)
+        states[label] = state
+        if mp:
+            reset_launch_counts()
+            resumed = train_hrem(args + ["-se", "1"])
+            with open(os.path.join(run, "log.txt")) as f:
+                log = f.read()
+            say(f"train CLI {label} resumed with -se 1: step {resumed.step}, next lr {resumed.opt.lr:.6e}, schedule "
+                f"step {resumed.opt.scheduler.last_epoch} (the uninterrupted run: {state.step}, {state.opt.lr:.6e}, "
+                f"{state.opt.scheduler.last_epoch}); launches {dict(launch_counts)}")
+            require("resumed from epoch 1" in log and resumed.step == state.step
+                    and resumed.opt.lr == state.opt.lr
+                    and resumed.opt.scheduler.last_epoch == state.opt.scheduler.last_epoch,
+                    "the resumed run's step and learning rate do not continue the uninterrupted run's")
+    train_step_card_vs_cpu(device)
+    train_steps_lower_the_loss(device, root)
+    return {"voxel_scatter_per_train_step": per_step["bf16 (default config)"][0],
+            "local_corr_per_train_step": per_step["bf16 (default config)"][1]}
+
+
+def train_step_card_vs_cpu(device: torch.device) -> None:
+    """One float32 train step (device voxelize with flips, forward, loss,
+    backward, clip, AdamW) from the same seeded parameters and batch at
+    128x256, B=2: on the card (the kernels) and on the CPU (their plain
+    versions); the loss and every parameter's gradient compared."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.eemflow import EEMFlow
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    h, w, B, N = 128, 256, 2, 8192
+    ev, nv = k1_batch(np.random.default_rng(13), (N, N - 100, N - 7, N), N=N, h=h, w=w)
+    rng = np.random.default_rng(14)
+    batch = {
+        "events_old": ev[:B], "events_new": ev[B:], "n_old": nv[:B], "n_new": nv[B:],
+        "flip_h": np.array([True, False]), "flip_v": np.array([False, True]),
+        "flow": (rng.standard_normal((B, 16, 16, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, 16, 16), np.float32),
+    }
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        state = create_train_state(EEMFlow(out_mesh_size=True), 5, make_optimizer(1e-3, num_steps=100), device=dev)
+        grads = {}
+        opt_step = state.opt.step
+
+        def step_recording_grads(state=state, grads=grads, opt_step=opt_step):
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()})
+            return opt_step()
+
+        state.opt.step = step_recording_grads
+        before = dict(launch_counts)
+        _, metrics = make_train_step(preprocess=make_device_preprocess(BINS, h, w))(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[dev.type] = (float(metrics["loss"]), grads,
+                          (launch_counts["voxel_scatter"] - before["voxel_scatter"],
+                           launch_counts["local_corr"] - before["local_corr"]))
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    worst = max(float((g_gpu[n] - g).abs().max()) / float(g.abs().max()) for n, g in g_cpu.items())
+    say(f"one float32 train step at {h}x{w} B={B}, card (K1 calls, K2 launches {n_gpu}) vs CPU (plain versions, "
+        f"{n_cpu}): loss {loss_gpu:.7f} vs {loss_cpu:.7f} (|Δ| relative {abs(loss_gpu - loss_cpu) / loss_cpu:.3e}, "
+        f"tolerance {TRAIN_LOSS_RTOL:g}); grads: the worst parameter's max|Δ| is {worst:.3e} of its largest |g| "
+        f"(tolerance {TRAIN_GRAD_TOL:g})")
+    require(n_gpu == (2, 1) and n_cpu == (0, 0), "the card's train step did not run K1 twice and K2 once")
+    require(np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
+            and worst <= TRAIN_GRAD_TOL, "the train step on the card disagrees with the CPU")
+
+
+def train_batch(root: str, device: torch.device, seed: int = 0) -> dict:
+    """One B=6 raw-event batch of the synthetic train split (flips drawn
+    from ``seed``), on the card."""
+    from eemflow_tpu_torch.data.hrem import HREMEventFlow
+    from eemflow_tpu_torch.data.loader import collate
+    from eemflow_tpu_torch.train.trainer import batch_to_device
+
+    ds = HREMEventFlow(root, train=True, raw_events=True, bucket_rungs=4,
+                       aug_params={"crop_size": [512, 960], "do_flip": True}, rng=np.random.default_rng(seed))
+    return batch_to_device(collate([ds[i] for i in range(TRAIN_BATCH)]), device)
+
+
+def train_state(device: torch.device, seed: int = 0, lr: float = 1e-4):
+    from eemflow_tpu_torch.models.registry import get_model
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state
+
+    return create_train_state(get_model("eemflow", out_mesh_size=True), seed,
+                              make_optimizer(lr, num_steps=1000), device=device)
+
+
+def train_steps_lower_the_loss(device: torch.device, root: str) -> None:
+    """20 bf16 steps (the default mixed precision) on one fixed 720x1280 B=6
+    batch lower its loss."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.train.trainer import make_train_step
+
+    batch = train_batch(root, device)
+    state = train_state(device, lr=1e-3)
+    step = make_train_step(preprocess=make_device_preprocess(BINS, H, W), mixed_precision=True)
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(20)]
+    say(f"20 bf16 steps on one 720x1280 B={TRAIN_BATCH} batch: loss {losses[0]:.6f} → {losses[-1]:.6f} "
+        f"(every 5th: {[round(x, 6) for x in losses[::5]]})")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], "20 steps on one batch did not lower its loss")
+
+
+def profiled_step(fn, reps: int, tmp: str) -> dict:
+    """``reps`` calls of ``fn`` under torch.profiler, one run: its wall
+    milliseconds a call, the device's busy milliseconds a call (the union
+    of the kernels' and copies' intervals in the exported trace, so nothing
+    counts twice) and their share of the wall time, and the device
+    operations a call.  For work that launches more kernels than the
+    card's launch queue holds, which ``queued_ms`` cannot queue behind one
+    sleep.  Tracing slows the host's issue, so the wall time here is the
+    profiled run's own, longer than back to back."""
+    from eemflow_tpu_torch.tools.profile_model import device_busy_ms
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace = os.path.join(tmp, "train_step_trace.json")
+    prof.export_chrome_trace(trace)
+    busy = device_busy_ms(trace)
+    os.remove(trace)
+    require(busy is not None, "the profiled train step shows no device work")
+    # not the optimizer's user annotation, which the profiler also lists
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("Optimizer.")]
+    return {"profiled_ms": wall_ms / reps, "busy_ms": busy / reps, "busy_share": busy / wall_ms,
+            "device_ops": sum(e.count for e in ops) / reps}
+
+
+def times_train(device: torch.device, tmp: str) -> dict:
+    """One train step at 720x1280, B=6, device voxelize (K1 ×2, forward with
+    one K2 launch, loss, backward, clip, AdamW), in bf16 and float32: back
+    to back (CUDA events), its device busy time and share in one profiled
+    run (a step launches more kernels than the launch queue holds, so it
+    cannot be queued behind a sleep), and its peak allocated memory."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.train.trainer import make_train_step
+
+    batch = train_batch(os.path.join(tmp, "hrem_train"), device)
+    out = {}
+    for label, mp in (("bf16", True), ("float32", False)):
+        state = train_state(device)
+        step = make_train_step(preprocess=make_device_preprocess(BINS, H, W), mixed_precision=mp)
+        run = lambda: step(state, batch)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        b2b = cuda_ms(run, reps=10, warmup=1)
+        prof = profiled_step(run, reps=5, tmp=tmp)
+        say(f"train step 720x1280 B={TRAIN_BATCH} device voxelize, {label}: {b2b:.3f} ms back to back "
+            f"({TRAIN_BATCH * 1e3 / b2b:.1f} samples/s); under torch.profiler {prof['profiled_ms']:.3f} ms a "
+            f"step, the device busy {prof['busy_ms']:.3f} ms of it ({100 * prof['busy_share']:.1f}%, the union "
+            f"of {prof['device_ops']:.0f} kernels and copies a step); peak allocated {peak / 2**30:.3f} GiB")
+        out[label] = {"ms": b2b, "peak_gib": peak / 2**30, **prof}
+    return out
+
+
+def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> tuple:
     from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
     from eemflow_tpu_torch.models.registry import get_eval_model
 
     phase("4 times (CUDA events, after a warm-up)")
-    k1_row = times_k1(device, errs, launches, yard)
+    k1_row = times_k1(device, errs, launches)
 
     sd = to_state_dict(load_torch_checkpoint(GOLDEN_CKPT))
     model = get_eval_model("eemflow")
     model.load_state_dict(sd)
     model.to(device)
-    k2_row = times_k2(device, model, errs, launches, yard)
+    k2_row = times_k2(device, model, errs, launches)
     x1, x2 = (torch.randn(1, H, W, BINS, device=device) for _ in range(2))
     k3_row, k4_row = times_k3_k4(device, model, x1, x2, errs, launches)
-    times_forwards(device, model, sd, x1, x2, yard)
-    times_sample(device, model, tmp, yard)
+    times_forwards(device, model, sd, x1, x2)
+    times_sample(device, model, tmp)
 
     k5_row = times_k5(device, errs, launches)
     times_eraft(device)
-    return [k1_row, k2_row, k3_row, k4_row, k5_row]
+    train = times_train(device, tmp)
+    return [k1_row, k2_row, k3_row, k4_row, k5_row], train
 
 
-def times_k1(device, errs: dict, launches: dict, yard: Yardstick) -> dict:
+def times_k1(device, errs: dict, launches: dict) -> dict:
     """K1 at 720x1280, B=2, with 2·10^5 events a frame and with 30,000 (the
     synthetic HREM fixture's count): ``voxel_scatter`` and ``voxelize`` on
-    the device (queued) and per wrapper call back to back, against the replaced
-    path (zero-fill + atomic kernel, then ``normalize_voxel_grid`` for
-    voxelize), ``index_put_(accumulate=True)`` on the same votes (then the
-    same normalisation), the plain versions, and the bytes bound: each
-    valid event read once, the grid written once."""
+    the device (queued) and per wrapper call back to back, against
+    ``index_put_(accumulate=True)`` on the same votes (then
+    ``normalize_voxel_grid`` for voxelize), the plain versions, and the
+    bytes bound: each valid event read once, the grid written once."""
     from eemflow_tpu_torch.events.voxel import normalize_voxel_grid, voxel_votes, voxelize_plain
     from eemflow_tpu_torch.kernels import voxel_scatter as k1
 
@@ -1049,6 +1192,7 @@ def times_k1(device, errs: dict, launches: dict, yard: Yardstick) -> dict:
         "replaces": "eemflow_tpu/ops/pallas/voxel_scatter.py:101",
         "launches": launches["voxel_scatter"], "max_abs_err": errs["voxel_scatter"],
         "voxelize_max_abs_err": errs["voxelize"], "standard_ms": None,
+        "launches_per_train_step": launches["voxel_scatter_per_train_step"],
     }
     for n_events, tag in ((200_000, ""), (30_000, "_30k")):
         ev, nv = k1_batch(rng, (n_events, n_events))
@@ -1067,8 +1211,6 @@ def times_k1(device, errs: dict, launches: dict, yard: Yardstick) -> dict:
         for what, fn in (
             ("scatter", lambda: k1.voxel_scatter(e, n, BINS, H, W)),
             ("voxelize", lambda: k1.voxelize(e, n, BINS, H, W)),
-            ("replaced scatter", lambda: yard.voxel_scatter(e, n, BINS, H, W)),
-            ("replaced voxelize", lambda: yard.voxelize(e, n, BINS, H, W)),
         ):
             t[what] = (queued_ms(fn, reps=20), cuda_ms(fn))
         t["library"] = cuda_ms(library)
@@ -1077,18 +1219,15 @@ def times_k1(device, errs: dict, launches: dict, yard: Yardstick) -> dict:
                  cuda_ms(lambda: voxelize_plain(e, n, BINS, H, W), reps=5))
         say(f"K1 B=2 N=2^18 n_valid={n_events} {H}x{W}, bound {bound:.5f} ms ({by}: {nbytes} B, each valid event "
             f"read once and the grid written once; {idx.numel()} votes), device (queued) / wrapper back to back: "
-            f"voxel_scatter {t['scatter'][0]:.4f} / {t['scatter'][1]:.4f} ms (the replaced zero-fill + atomics "
-            f"{t['replaced scatter'][0]:.4f} / {t['replaced scatter'][1]:.4f}); voxelize {t['voxelize'][0]:.4f} / "
-            f"{t['voxelize'][1]:.4f} ms (the replaced path with normalize_voxel_grid {t['replaced voxelize'][0]:.4f} / "
-            f"{t['replaced voxelize'][1]:.4f}); index_put_(accumulate=True) "
+            f"voxel_scatter {t['scatter'][0]:.4f} / {t['scatter'][1]:.4f} ms; voxelize {t['voxelize'][0]:.4f} / "
+            f"{t['voxelize'][1]:.4f} ms; index_put_(accumulate=True) "
             f"{t['library']:.4f} ms, with normalize_voxel_grid {t['library voxelize']:.4f} (back to back); "
             f"plain versions {plain[0]:.4f} / {plain[1]:.4f} ms")
         row.update({
             f"ms{tag}": t["scatter"][0], f"wrapper_ms{tag}": t["scatter"][1], f"plain_ms{tag}": plain[0],
-            f"bound_ms{tag}": bound, f"library_ms{tag}": t["library"], f"yardstick_ms{tag}": t["replaced scatter"][0],
+            f"bound_ms{tag}": bound, f"library_ms{tag}": t["library"],
             f"voxelize_ms{tag}": t["voxelize"][0], f"voxelize_wrapper_ms{tag}": t["voxelize"][1],
             f"voxelize_plain_ms{tag}": plain[1], f"voxelize_library_ms{tag}": t["library voxelize"],
-            f"voxelize_yardstick_ms{tag}": t["replaced voxelize"][0],
         })
         if not tag:
             row["bound_by"] = by
@@ -1107,67 +1246,78 @@ def kernel_counts(fn, name: str):
     return sum(name in k for k in names), sum(name not in k for k in names)
 
 
-def times_k2(device, model, errs: dict, launches: dict, yard: Yardstick) -> dict:
-    """K2 in the 720x1280 B=1 standard forward: the three levels' correlation
-    step (``EEMFlow._corrs`` on the forward's pooled features) on the device
-    and per call back to back, its launches and the other kernels it runs
-    (copies), against the replaced step (one wrapper call a level, each copying
-    its two permuted inputs), the plain version and the bytes bound."""
+def k2_work(pooled, K: int, elem_bytes: int):
+    """(bytes, operations) one K2 call over these pooled NCHW levels must
+    move and do: both inputs read once, the displacement table, the output
+    written once; 2 per multiply-add."""
+    nbytes = flops = 0
+    for a in pooled:
+        b, c, h, w = a.shape
+        nbytes += 2 * b * h * w * c * elem_bytes + K * 4 + b * h * w * K * elem_bytes
+        flops += 2 * b * h * w * K * c
+    return nbytes, flops
+
+
+def times_k2(device, model, errs: dict, launches: dict) -> dict:
+    """K2 in the 720x1280 standard forward: the three levels' correlation
+    step (``EEMFlow._corrs`` on the forward's pooled features) at B=1 in
+    float32 on the device and per call back to back, its launches and the
+    other kernels it runs (copies), the plain version and the bytes bound;
+    then in bf16 (the training forward's mixed precision) at B=1 and B=6,
+    beside their bounds."""
     from eemflow_tpu_torch.kernels import launch_counts
     from eemflow_tpu_torch.kernels import local_corr as k2
 
     p1, p2 = forward_pooled(model, 1, device, seed=20)
     K = len(model.corr_indices)
-    nbytes = flops = 0
-    for a in p1:
-        b, c, h, w = a.shape
-        nbytes += 2 * b * h * w * c * 4 + K * 4 + b * h * w * K * 4
-        flops += 2 * b * h * w * K * c
+    nbytes, flops = k2_work(p1, K, 4)
     bound, by = bound_ms(nbytes, flops)
     with torch.inference_mode():
         new = lambda: model._corrs(p1, p2)
-        old = lambda: yard.corrs(model, p1, p2)
         plain = lambda: [k2.plain(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), model.max_displacement,
                                   model.corr_indices) for a, b in zip(p1, p2)]
-        err = max(float((x - y).abs().max()) for x, y in zip(new(), old()))
-        require(err <= K2_TOL, "K2's correlation step disagrees with the replaced step")
         before = launch_counts["local_corr"]
         new()
         per_forward = launch_counts["local_corr"] - before
         require(per_forward == 1, f"the standard forward's correlation step took {per_forward} K2 launches")
         n_new, other_new = kernel_counts(new, "local_corr")
-        n_old, other_old = kernel_counts(old, "local_corr")
         t_new = (queued_ms(new, reps=50), cuda_ms(new, reps=50))
-        t_old = (queued_ms(old, reps=50), cuda_ms(old, reps=50))
-        t_new2 = (queued_ms(new, reps=50), cuda_ms(new, reps=50))
         t_plain = cuda_ms(plain, reps=10)
+        bf16 = {}
+        for batch in (1, 6):
+            q1, q2 = forward_pooled(model, batch, device, seed=21 + batch)
+            q1, q2 = ([t.to(torch.bfloat16) for t in q] for q in (q1, q2))
+            step = lambda: model._corrs(q1, q2)
+            b_bytes, b_flops = k2_work(q1, K, 2)
+            bf16[batch] = (queued_ms(step, reps=50), cuda_ms(step, reps=50), bound_ms(b_bytes, b_flops),
+                           b_bytes, b_flops)
     require(n_new == 1 and other_new == 0, f"K2's step ran {n_new} K2 kernels and {other_new} others")
-    dev = (t_new[0] + t_new2[0]) / 2
-    wrap = (t_new[1] + t_new2[1]) / 2
-    say(f"K2 local_corr_levels, the three 12x20 levels of a 720x1280 B=1 forward (C=16/32/64, K={K}): "
-        f"{n_new} launch and {other_new} other kernels per forward; {dev:.4f} ms on the device (queued; "
-        f"{t_new[0]:.4f} and {t_new2[0]:.4f} in two runs around the replaced step's), {wrap:.4f} ms per call "
-        f"back to back; "
-        f"the replaced step: {n_old} launches and {other_old} copy kernels, {t_old[0]:.4f} ms on the device, "
-        f"{t_old[1]:.4f} ms back to back (max|Δ| to it {err:.3e}); bound {bound:.6f} ms ({by}: {nbytes} B, "
-        f"{flops} FLOP); plain version {t_plain:.4f} ms; no single PyTorch call computes it")
+    say(f"K2 local_corr_levels, the three 12x20 levels of a 720x1280 B=1 forward (C=16/32/64, K={K}), float32: "
+        f"{n_new} launch and {other_new} other kernels per forward; {t_new[0]:.4f} ms on the device (queued), "
+        f"{t_new[1]:.4f} ms per call back to back; bound {bound:.6f} ms ({by}: {nbytes} B, {flops} FLOP); plain "
+        f"version {t_plain:.4f} ms; no single PyTorch call computes it")
+    for batch, (dev, wrap, (b_ms, b_by), b_bytes, b_flops) in bf16.items():
+        say(f"K2 local_corr_levels bf16 (the training forward's mixed precision), the three 12x20 levels of a "
+            f"720x1280 B={batch} forward: {dev:.4f} ms on the device (queued), {wrap:.4f} ms per call back to back; "
+            f"bound {b_ms:.6f} ms ({b_by}: {b_bytes} B, {b_flops} FLOP)")
     return {
         "name": "local_corr", "route": "cuda",
         "source": "eemflow_tpu_torch/kernels/csrc/local_corr.cu",
         "replaces": "eemflow_tpu/ops/pallas/local_corr.py:104",
         "launches": launches["local_corr"], "max_abs_err": errs["local_corr"],
-        "ms": dev, "wrapper_ms": wrap, "plain_ms": t_plain,
+        "ms": t_new[0], "wrapper_ms": t_new[1], "plain_ms": t_plain,
         "bound_ms": bound, "bound_by": by, "library_ms": None, "standard_ms": None,
         "launches_per_forward": n_new, "copy_kernels": other_new,
-        "yardstick_ms": t_old[0], "yardstick_wrapper_ms": t_old[1],
-        "yardstick_launches_per_forward": n_old, "yardstick_copy_kernels": other_old,
+        "launches_per_train_step": launches["local_corr_per_train_step"],
+        "bf16_max_abs_err": errs["local_corr_bf16"],
+        "bf16_ms": bf16[1][0], "bf16_wrapper_ms": bf16[1][1], "bf16_bound_ms": bf16[1][2][0],
+        "bf16_ms_b6": bf16[6][0], "bf16_bound_ms_b6": bf16[6][2][0],
     }
 
 
-def times_forwards(device, model, sd, x1, x2, yard: Yardstick) -> None:
-    """One 720x1280 B=1 EEMFlow forward, standard (also with the replaced K2
-    step in place of the one launch) and fused, back to back and on the
-    device."""
+def times_forwards(device, model, sd, x1, x2) -> None:
+    """One 720x1280 B=1 EEMFlow forward, standard and fused, back to back
+    and on the device."""
     from eemflow_tpu_torch.models.registry import get_eval_model
 
     flows = {}
@@ -1188,24 +1338,16 @@ def times_forwards(device, model, sd, x1, x2, yard: Yardstick) -> None:
             f"{b2b:.3f} ms per call back to back ({1e3 / b2b:.1f} fps), {dev:.3f} ms on the device (queued)")
 
     timed("standard", model)
-    model._corrs = lambda p1, p2: yard.corrs(model, p1, p2)
-    try:
-        timed("standard with the replaced K2 step", model)
-    finally:
-        del model._corrs
-    timed("standard (again)", model)
     timed("fused (--fast_head --fast_pyramid)", fused)
-    for label in ("standard with the replaced K2 step", "fused (--fast_head --fast_pyramid)"):
-        err = float((flows["standard"] - flows[label]).abs().max())
-        say(f"720x1280 {label} vs standard forward: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g})")
-        require(err <= FORWARD_TOL, f"the 720x1280 {label} forward disagrees with the standard one")
+    err = float((flows["standard"] - flows["fused (--fast_head --fast_pyramid)"]).abs().max())
+    say(f"720x1280 fused vs standard forward: max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g})")
+    require(err <= FORWARD_TOL, "the 720x1280 fused forward disagrees with the standard one")
 
 
-def times_sample(device, model, tmp: str, yard: Yardstick) -> None:
+def times_sample(device, model, tmp: str) -> None:
     """The whole device-voxelize eval sample (packed events from the host →
-    K1 voxelize ×2 → forward with one K2 launch → flow on the host),
-    against the replaced path (K1 scatter + normalize_voxel_grid ×2, three K2
-    calls with their copies), alternated: replaced, this, this, replaced."""
+    K1 voxelize ×2 → forward with one K2 launch → flow on the host), back
+    to back."""
     from eemflow_tpu_torch.data.device_input import make_device_preprocess
     from eemflow_tpu_torch.data.hrem import HREMEventFlow
     from eemflow_tpu_torch.eval.runner import Tester
@@ -1213,35 +1355,16 @@ def times_sample(device, model, tmp: str, yard: Yardstick) -> None:
     ds = HREMEventFlow(os.path.join(tmp, "hrem"), raw_events=True)
     ds.change_test_sequence("indoor_fast")
     sample = ds[0]
-
-    def pr8_preprocess(batch):
-        out = {k: v for k, v in batch.items() if k not in ("events_old", "events_new", "n_old", "n_new")}
-        for key, ev, n in (("event_volume_old", "events_old", "n_old"), ("event_volume_new", "events_new", "n_new")):
-            grid = yard.voxelize(batch[ev].contiguous(), batch[n].to(torch.int32).contiguous(), BINS, H, W)
-            out[key] = grid.permute(0, 2, 3, 1)
-        return out
-
-    def measure(pr8: bool, reps: int = 20) -> float:
-        tester = Tester(model, device, preprocess=pr8_preprocess if pr8 else make_device_preprocess(BINS, H, W))
-        if pr8:
-            model._corrs = lambda p1, p2: yard.corrs(model, p1, p2)
-        try:
-            for _ in range(3):
-                tester.run_sample(sample)
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                tester.run_sample(sample)
-            return (time.perf_counter() - t0) / reps * 1e3
-        finally:
-            if pr8:
-                del model._corrs
-
-    old_a, new_a, new_b, old_b = measure(True), measure(False), measure(False), measure(True)
-    new, old = (new_a + new_b) / 2, (old_a + old_b) / 2
+    tester = Tester(model, device, preprocess=make_device_preprocess(BINS, H, W))
+    for _ in range(3):
+        tester.run_sample(sample)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tester.run_sample(sample)
+    ms = (time.perf_counter() - t0) / reps * 1e3
     say(f"whole eval sample, device voxelize (packed events from the host → K1 voxelize ×2 → forward, one K2 "
-        f"launch → flow on the host): {new:.3f} ms ({1e3 / new:.1f} fps; runs {new_a:.3f}, {new_b:.3f}); the replaced "
-        f"path (zero-fill + atomic scatter + normalize_voxel_grid ×2, three K2 calls and six copies): "
-        f"{old:.3f} ms ({1e3 / old:.1f} fps; runs {old_a:.3f}, {old_b:.3f}), alternated replaced, this, this, replaced")
+        f"launch → flow on the host): {ms:.3f} ms ({1e3 / ms:.1f} fps)")
 
 
 def times_k5(device, errs: dict, launches: dict) -> dict:
@@ -1585,11 +1708,13 @@ def run(device: torch.device) -> dict:
     t0 = time.perf_counter()
     dev_info = phase_device(device)
     with tempfile.TemporaryDirectory(prefix="eemflow_smoke_") as tmp:
-        yard = phase_build(tmp)
+        phase_build()
         errs = phase_parity(device)
         launches = phase_end_to_end(device, tmp)
-        kernels = phase_times(device, tmp, errs, launches, yard)
+        launches.update(phase_train(device, tmp))
+        kernels, train = phase_times(device, tmp, errs, launches)
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    say(json.dumps({"train_step": train}))
     say(json.dumps({"kernels": kernels}))
     return dev_info
 

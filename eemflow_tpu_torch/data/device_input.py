@@ -1,12 +1,23 @@
 """Device-side input step: raw padded events → voxel grids on the card
-(eval part of ``eemflow_tpu/data/device_input.py:40-160``).
+(counterpart of ``eemflow_tpu/data/device_input.py:40-193``).
 
 The host only reads and pads raw events to a fixed bucket; the scatter
-and the normalization run on the device as the first part of the eval
-step, as one call of kernel K1 (``voxelize``) per frame.  Batch contract (the datasets' raw-event mode):
-``events_old``/``events_new`` [B, bucket, 4] float32 (t, x, y, p),
-time-sorted, relative timestamps; ``n_old``/``n_new`` [B] int32.  Flips
-and crops are train-only and come with the training slice.
+and the normalization run on the device as the first part of the eval or
+train step, as one call of kernel K1 (``voxelize``) per frame.  Batch
+contract (the datasets' raw-event mode):
+
+  * ``events_old``/``events_new`` [B, bucket, 4] float32 (t, x, y, p),
+    time-sorted, relative timestamps; ``n_old``/``n_new`` [B] int32;
+  * optional ``flip_h``/``flip_v`` [B] bool, the flips drawn on the host
+    (which flipped the label with the same draws,
+    ``augment.FlowAugmentor.draw_flips``).
+
+As on the host path, the full frame is voxelized first (the normalization
+statistics are the whole grid's) and then flipped, so both paths give the
+same grids for the same draws.  The HREM training path only flips; the
+crops and the event mask of the JAX step come with the slices that run
+them (``ROADMAP.md``).  The step takes no
+gradient: the train step runs it under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ from eemflow_tpu_torch.events.voxel import voxelize_batch_nhwc
 
 logger = logging.getLogger("eemflow_tpu_torch")
 
-_RAW_KEYS = ("events_old", "events_new", "n_old", "n_new")
+_RAW_KEYS = ("events_old", "events_new", "n_old", "n_new", "flip_h", "flip_v")
 
 
 class EventOverflowCounter:
@@ -56,23 +67,31 @@ class EventOverflowCounter:
         }
 
 
+def flip_batch(grids: torch.Tensor, flip_h: torch.Tensor, flip_v: torch.Tensor) -> torch.Tensor:
+    """Per-sample h/v flips of [B, H, W, C] grids (h reverses the W axis),
+    selected on the device: no host sync."""
+    grids = torch.where(flip_h.view(-1, 1, 1, 1), grids.flip(2), grids)
+    return torch.where(flip_v.view(-1, 1, 1, 1), grids.flip(1), grids)
+
+
 def make_device_preprocess(
     num_bins: int, height: int, width: int
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """fn(batch) → batch with ``event_volume_old/new`` ([B, H, W, bins]
-    NHWC) in place of the raw-event keys; a host-voxelized batch passes
-    through unchanged."""
+    NHWC) in place of the raw-event keys, flipped where the batch has flip
+    flags.  A host-voxelized batch passes through unchanged."""
 
     def preprocess(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if "events_old" not in batch:
             return batch
         out = {k: v for k, v in batch.items() if k not in _RAW_KEYS}
-        out["event_volume_old"] = voxelize_batch_nhwc(
-            batch["events_old"], batch["n_old"], num_bins, height, width
-        )
-        out["event_volume_new"] = voxelize_batch_nhwc(
-            batch["events_new"], batch["n_new"], num_bins, height, width
-        )
+        ev_old = voxelize_batch_nhwc(batch["events_old"], batch["n_old"], num_bins, height, width)
+        ev_new = voxelize_batch_nhwc(batch["events_new"], batch["n_new"], num_bins, height, width)
+        if "flip_h" in batch:
+            fh, fv = batch["flip_h"], batch["flip_v"]
+            ev_old, ev_new = flip_batch(ev_old, fh, fv), flip_batch(ev_new, fh, fv)
+        out["event_volume_old"] = ev_old
+        out["event_volume_new"] = ev_new
         return out
 
     return preprocess

@@ -1,27 +1,37 @@
-"""HREM dataset, test split (counterpart of ``eemflow_tpu/data/hrem.py:41-224``;
+"""HREM dataset (counterpart of ``eemflow_tpu/data/hrem.py:41-224``;
 reference ``loader/HREM.py``).
 
-Layout: ``{root}/test/{dt}/{sequence}/{name}/{events1.npz, events2.npz,
-flow.flo}`` with sequences {indoor,outdoor}×{fast,slow};
-``change_test_sequence`` selects one.
+Layout on disk (reference ``HREM.py:154-189``):
+  * train: ``{root}/train/{dt}/{name}/{events1.npz, events2.npz, flow.flo}``;
+  * test: ``{root}/test/{dt}/{sequence}/{name}/...`` with sequences
+    {indoor,outdoor}×{fast,slow}; ``change_test_sequence`` selects one.
 
-Per sample: dense flow → 16×16 meshflow (``data.meshflow``), bilinearly
-upsampled back to full resolution (align_corners=False, reference
-``HREM.py:266-268``) and masked to finite, nonzero GT.  Events become
-either host voxel grids (numpy, float64) or, in raw-event mode, padded
-[bucket, 4] float32 buffers that the model's device step voxelizes
-(``data.device_input``).  Arrays are NHWC per sample.  The training split
-comes with the training slice.
+Per sample: dense flow → 16×16 meshflow (``data.meshflow``).  Test: the
+meshflow bilinearly upsampled back to full resolution (align_corners=False,
+reference ``HREM.py:266-268``) and masked to finite, nonzero GT.  Train:
+the meshflow (or, with ``full_res_flow``, the dense flow) is the label,
+``valid`` is all ones, and the flip-only augmentor runs (``without_resize``,
+reference ``HREM.py:252``, with the label-flip bug fixed, see
+``data.augment``).  Events become either host voxel grids (numpy, float64)
+or, in raw-event mode, padded [bucket, 4] float32 buffers that the model's
+device step voxelizes (``data.device_input``); in that mode the flips are
+drawn here, applied to the label, and handed on as ``flip_h``/``flip_v``
+for the device to flip the grids.  Arrays are NHWC per sample.
+
+One difference from the JAX class: ``train`` defaults to False, the split
+the port had before its training slice, so that its eval callers stay as
+they are.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from eemflow_tpu_torch.data.augment import FlowAugmentor
 from eemflow_tpu_torch.data.device_input import EventOverflowCounter
 from eemflow_tpu_torch.data.meshflow import motion_propagate
 from eemflow_tpu_torch.events.io import read_compressed_events, read_flo
@@ -56,10 +66,21 @@ class HREMEventFlow:
         raw_events: bool = False,
         bucket_size: int = 1 << 18,
         bucket_rungs: int = 1,
+        train: bool = False,
+        aug_params: Optional[dict] = None,
+        rng: Optional[np.random.Generator] = None,
+        full_res_flow: bool = False,
     ):
         self.root = root
         self.dt = dt
+        self.type = "train" if train else "val"
         self.num_bins = num_bins
+        # full_res_flow: train labels are the dense .flo flow instead of the
+        # 16x16 meshflow
+        self.full_res_flow = full_res_flow
+        self.augmentor = (
+            FlowAugmentor(**aug_params, rng=rng) if aug_params is not None else None
+        )
         self.raw_events = raw_events
         self.bucket_size = bucket_size
         self.bucket_ladder = (
@@ -84,6 +105,9 @@ class HREMEventFlow:
         return out
 
     def _scan(self) -> None:
+        if self.type == "train":
+            self.data_ls = self._scan_dir(os.path.join(self.root, "train", self.dt))
+            return
         test_dir = os.path.join(self.root, "test", self.dt)
         self.nori_list = {}
         if os.path.isdir(test_dir):
@@ -139,9 +163,16 @@ class HREMEventFlow:
     def get_sample(self, idx: int) -> Dict[str, np.ndarray]:
         rec = self.data_ls[idx]
         fflow = read_flo(rec["fflow"])  # [H, W, 2]
-        x_mesh, y_mesh = motion_propagate(fflow, mesh_size=16)
-        flow = np.stack([x_mesh, y_mesh], axis=-1).astype(np.float32)
-        sample = {"names": rec["names"], "flow": flow, "fflow": fflow}
+        if self.full_res_flow and self.type == "train":
+            flow = fflow  # the dense label: no mesh propagation
+        else:
+            x_mesh, y_mesh = motion_propagate(fflow, mesh_size=16)
+            flow = np.stack([x_mesh, y_mesh], axis=-1).astype(np.float32)
+        sample = {"names": rec["names"], "flow": flow}
+        if self.type != "train":
+            # the full-resolution GT for eval only: in training it would go
+            # stale (unflipped) after augmentation
+            sample["fflow"] = fflow
         if self.raw_events:
             sample["events_old"], sample["n_old"] = self._raw(rec["event0"])
             sample["events_new"], sample["n_new"] = self._raw(rec["event1"])
@@ -154,6 +185,28 @@ class HREMEventFlow:
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         sample = self.get_sample(idx % len(self))
+        if self.type == "train" and self.raw_events:
+            # flips drawn here (the label flipped here), grids flipped on the
+            # device (data.device_input)
+            flow = sample["flow"]
+            if self.augmentor is not None:
+                flow, fh, fv = self.augmentor.draw_flips(flow)
+            else:
+                fh = fv = False
+            sample["flow"] = flow
+            sample["flip_h"] = np.bool_(fh)
+            sample["flip_v"] = np.bool_(fv)
+            sample["valid"] = np.ones(flow.shape[:2], np.float32)
+            return sample
+        if self.type == "train":
+            ev1, ev2, flow = sample["event_volume_old"], sample["event_volume_new"], sample["flow"]
+            if self.augmentor is not None:
+                ev1, ev2, flow = self.augmentor(ev1, ev2, flow, without_resize=True)
+            sample["event_volume_old"] = ev1
+            sample["event_volume_new"] = ev2
+            sample["flow"] = flow
+            sample["valid"] = np.ones(flow.shape[:2], np.float32)
+            return sample
         flow_full = _bilinear_upsample_np(
             sample["flow"], (self.image_height, self.image_width)
         )

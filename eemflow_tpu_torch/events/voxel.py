@@ -53,6 +53,20 @@ class BufferPool:
         self._pool: dict = {}
         self._next: dict = {}
 
+    def ensure_ring(self, ring: int) -> None:
+        """Grow the ring (never shrink it).  A consumer that holds more than
+        ``ring`` buffers of one bucket at once would read overwritten data:
+        ``data.loader.batch_iterator`` sizes it as ``2 * batch_size + 4``
+        (two pack buffers a sample, copied by collate only once the whole
+        batch is read)."""
+        ring = max(self.ring, ring)
+        if ring == self.ring:
+            return
+        self.ring = ring
+        for bucket, lst in self._pool.items():
+            while len(lst) < ring:
+                lst.append(np.zeros((bucket, 4), np.float32))
+
     def get(self, bucket: int) -> np.ndarray:
         ring = self._pool.get(bucket)
         if ring is None:

@@ -11,8 +11,12 @@
 //   out_l[b, y, x, j] = (1/C_l) * sum_c X_l[b, y, x, c] * Y_l[b, y + dy_j, x + dx_j, c]
 //
 // over the displacements idx[j] of the dy-major (2md+1)^2 window, zero
-// outside the frame.  Forward only: the backward is the plain version's
-// autograd (kernels/local_corr.py LocalCorr).
+// outside the frame.  X, Y and the output are float32 or all bf16 (the
+// training forward's mixed precision): bf16 operands are widened when
+// staged, multiplied and summed in float32 and rounded to bf16 once, on the
+// store (1/C is a power of two for EEMFlow's C = 16, 32 and 64, so the
+// scaling rounds nothing).  Forward only: the backward is the plain
+// version's autograd (kernels/local_corr.py LocalCorr, LocalCorrLevels).
 //
 // Bound on this card: at EEMFlow's shapes (three 12x20 grids with C = 16,
 // 32 and 64, K = 53 at 720x1280) a forward is ~2.8 MFLOP and ~0.37 MB,
@@ -43,6 +47,7 @@
 //     from shared memory in channel order (fmaf), then multiplies by 1/C as
 //     the plain version does.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 constexpr int MAX_LEVELS = 3;
@@ -50,9 +55,9 @@ constexpr int MAX_K = 289;  // a full window up to md = 8
 
 // outside the anonymous namespace: the exported launch takes it
 struct CorrLevel {
-  const float* x;
-  const float* y;
-  float* out;
+  const void* x;  // float or __nv_bfloat16, as CorrArgs::dtype says
+  const void* y;
+  void* out;
   long long xs[4], ys[4], os[4];  // element strides: (b, h, w, c) and (b, h, w, k)
   int B, H, W, C;
   int rows, cols, cc;   // output tile and channel chunk
@@ -65,8 +70,12 @@ struct CorrLevel {
 struct CorrArgs {
   CorrLevel lv[MAX_LEVELS];
   int nlevels, K, md, blocks, smem_bytes;
+  int dtype;  // DTYPE_F32 or DTYPE_BF16, every level's x, y and output
   int idx[MAX_K];
 };
+
+constexpr int DTYPE_F32 = 0;
+constexpr int DTYPE_BF16 = 1;
 
 namespace {
 
@@ -88,6 +97,11 @@ __device__ __forceinline__ Layout layout(bool channels_inner, int cs, int positi
   return channels_inner ? Layout{cs, 1} : Layout{1, positions};
 }
 
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // Element strides of one input, copied out of the parameter space once.
 struct Strides {
   long long b, h, w, c;
@@ -96,12 +110,14 @@ struct Strides {
 // stage src[b][y0 + r][x0 + c][c0 + k] for r < nr, c < nc, k < cn as
 // position r * ld + c of dst, zero outside [0, H) x [0, W): the lanes of a
 // warp walk the input's unit-stride dimension (what depends on the lane is
-// worked out once), the warps its lines, each thread UNROLL loads at a time
-__device__ __forceinline__ void stage(float* dst, Layout lay, const float* __restrict__ src, Strides st,
+// worked out once), the warps its lines, each thread UNROLL loads at a time;
+// a bf16 input is widened to float32 as it is staged
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, Layout lay, const T* __restrict__ src, Strides st,
                                       int b, int y0, int x0, int nr, int nc, int ld, int c0, int cn, int H,
                                       int W) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = THREADS / 32;
-  const float* base = src + b * st.b + c0 * st.c;
+  const T* base = src + b * st.b + c0 * st.c;
   const bool channels_inner = st.c == 1;
   const int inner = channels_inner ? cn : nc;  // along the unit stride
   const int span = channels_inner ? nc : cn;   // the other dimension within a row
@@ -123,7 +139,7 @@ __device__ __forceinline__ void stage(float* dst, Layout lay, const float* __res
                         (!channels_inner || (xq >= 0 && xq < W));
         const long long g = y * st.h + (channels_inner ? xq * st.w : q * st.c);
         so[u] = line + u * nwarps < lines ? r * ld * lay.ps + (channels_inner ? q * lay.ps : q * lay.ks) : -1;
-        v[u] = ok ? __ldg(base + g + lane_g) : 0.0f;
+        v[u] = ok ? load(base + g + lane_g) : 0.0f;
         q += nwarps;
         if (q >= span) {
           r += q / span;
@@ -137,15 +153,16 @@ __device__ __forceinline__ void stage(float* dst, Layout lay, const float* __res
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) local_corr_levels(const __grid_constant__ CorrArgs a) {
   extern __shared__ float smem[];
   int l = 0;
   while (l + 1 < a.nlevels && (int)blockIdx.x >= a.lv[l + 1].first_block) ++l;
   // this level's fields, out of the parameter space once
   const CorrLevel& L = a.lv[l];
-  const float* __restrict__ X = L.x;
-  const float* __restrict__ Y = L.y;
-  float* __restrict__ out = L.out;
+  const T* __restrict__ X = static_cast<const T*>(L.x);
+  const T* __restrict__ Y = static_cast<const T*>(L.y);
+  T* __restrict__ out = static_cast<T*>(L.out);
   const Strides xst{L.xs[0], L.xs[1], L.xs[2], L.xs[3]};
   const Strides yst{L.ys[0], L.ys[1], L.ys[2], L.ys[3]};
   const Strides ost{L.os[0], L.os[1], L.os[2], L.os[3]};
@@ -199,7 +216,7 @@ __global__ void __launch_bounds__(THREADS) local_corr_levels(const __grid_consta
     if (o < nout) {
       const int j = o / npix, p = o % npix;
       const int r = p / cols, c = p % cols;
-      out[b * ost.b + (y0 + r) * ost.h + (x0 + c) * ost.w + j * ost.c] = acc[i] * inv_c;
+      store(out + b * ost.b + (y0 + r) * ost.h + (x0 + c) * ost.w + j * ost.c, acc[i] * inv_c);
     }
   }
 }
@@ -210,24 +227,34 @@ __global__ void __launch_bounds__(THREADS) local_corr_levels(const __grid_consta
 extern "C" int local_corr_args_size() { return (int)sizeof(CorrArgs); }
 
 
-extern "C" int local_corr_levels_launch(const CorrArgs* args, cudaStream_t stream) {
-  const CorrArgs& a = *args;
-  if (a.blocks <= 0) return (int)cudaSuccess;
-  if (a.nlevels < 1 || a.nlevels > MAX_LEVELS || a.K < 1 || a.K > MAX_K || a.smem_bytes > MAX_SMEM)
-    return (int)cudaErrorInvalidValue;
-  for (int l = 0; l < a.nlevels; ++l)
-    if (a.lv[l].rows * a.lv[l].cols * a.K > THREADS * OUT_PER_THREAD || a.lv[l].cc < 1 ||
-        a.lv[l].cs < a.lv[l].cc || a.lv[l].cs % 2 == 0)
-      return (int)cudaErrorInvalidValue;
+namespace {
+
+template <typename T>
+int launch(const CorrArgs& a, cudaStream_t stream) {
   static int allowed[64];  // the shared memory each device has opted into, by device
   int dev = 0;
   cudaGetDevice(&dev);
   if (a.smem_bytes > 48 * 1024 && (dev >= 64 || a.smem_bytes > allowed[dev])) {
     const cudaError_t e =
-        cudaFuncSetAttribute(local_corr_levels, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+        cudaFuncSetAttribute(local_corr_levels<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
     if (e != cudaSuccess) return (int)e;
     if (dev < 64) allowed[dev] = a.smem_bytes;
   }
-  local_corr_levels<<<a.blocks, THREADS, a.smem_bytes, stream>>>(a);
+  local_corr_levels<T><<<a.blocks, THREADS, a.smem_bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int local_corr_levels_launch(const CorrArgs* args, cudaStream_t stream) {
+  const CorrArgs& a = *args;
+  if (a.blocks <= 0) return (int)cudaSuccess;
+  if (a.nlevels < 1 || a.nlevels > MAX_LEVELS || a.K < 1 || a.K > MAX_K || a.smem_bytes > MAX_SMEM ||
+      (a.dtype != DTYPE_F32 && a.dtype != DTYPE_BF16))
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < a.nlevels; ++l)
+    if (a.lv[l].rows * a.lv[l].cols * a.K > THREADS * OUT_PER_THREAD || a.lv[l].cc < 1 ||
+        a.lv[l].cs < a.lv[l].cc || a.lv[l].cs % 2 == 0)
+      return (int)cudaErrorInvalidValue;
+  return a.dtype == DTYPE_BF16 ? launch<__nv_bfloat16>(a, stream) : launch<float>(a, stream);
 }

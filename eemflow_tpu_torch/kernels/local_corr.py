@@ -6,12 +6,17 @@ and its custom VJP.  ``local_corr_levels`` computes up to three levels of
 different C and H×W in one launch, reading each input through its strides
 (EEMFlow's permuted NCHW views need no copy) and writing each output
 channels-first, the layout the decoder's concatenation reads;
-``local_corr`` is the same kernel with one level and an NHWC output.  When
-a gradient is wanted, each level goes through ``LocalCorr``, an
-``autograd.Function`` whose forward is the kernel on the card (the twin on
-the CPU) and whose backward is the twin's autograd, recomputed from the
-saved ``x`` and ``y`` — as the JAX ``_bwd`` is the VJP of the XLA
-formulation, not a kernel.
+``local_corr`` is the same kernel with one level and an NHWC output.
+Inputs are float32, or bf16 (the training forward's mixed precision, as
+the JAX kernel computes in its input's dtype): bf16 operands are multiplied
+and summed in float32 and the result rounded to bf16 once, the plain
+version's definition too.  When a gradient is wanted, ``local_corr_levels``
+goes through ``LocalCorrLevels`` and ``local_corr`` through ``LocalCorr``,
+``autograd.Function``s whose forward is the kernel on the card (one launch
+for all levels; the twin on the CPU) and whose backward is the autograd of
+the twin's function, recomputed level by level from the saved inputs
+(``_plain_vjp``) — as the JAX ``_bwd`` is the VJP of the XLA formulation,
+not a kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ import numpy as np
 import torch
 
 from eemflow_tpu_torch.kernels import build, launch_counts, stream_handle
-from eemflow_tpu_torch.ops.correlation import local_correlation_plain, selected_displacements
+from eemflow_tpu_torch.ops.correlation import (
+    local_correlation_plain,
+    local_correlation_windowed,
+    selected_displacements,
+)
 
 plain = local_correlation_plain
 
@@ -55,9 +64,13 @@ class _Args(ctypes.Structure):
     _fields_ = [
         ("lv", _Level * MAX_LEVELS),
         ("nlevels", ctypes.c_int), ("K", ctypes.c_int), ("md", ctypes.c_int),
-        ("blocks", ctypes.c_int), ("smem_bytes", ctypes.c_int),
+        ("blocks", ctypes.c_int), ("smem_bytes", ctypes.c_int), ("dtype", ctypes.c_int),
         ("idx", ctypes.c_int * MAX_K),
     ]
+
+
+# the kernel's element types (``CorrArgs::dtype``)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -117,8 +130,8 @@ def _check(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 4 or x.shape != y.shape:
         raise ValueError(f"{name}: x and y must be equal [B, H, W, C], got {tuple(x.shape)} and {tuple(y.shape)}")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise ValueError(f"{name}: float32 only")
+    if x.dtype not in DTYPES or y.dtype != x.dtype:
+        raise ValueError(f"{name}: x and y must both be float32 or both bf16, got {x.dtype} and {y.dtype}")
     if y.device != x.device:
         raise ValueError(f"{name}: x and y must be on one device")
 
@@ -134,6 +147,8 @@ class _Plan:
             raise ValueError(f"local_corr: at most {MAX_K} displacements, got {K}")
         self.args = args = _Args()
         args.nlevels, args.K, args.md = len(pairs), K, max_displacement
+        args.dtype = DTYPES[pairs[0][0].dtype]
+        self.dtype = pairs[0][0].dtype
         args.idx[:K] = wanted
         self.outs = []  # (size, stride, offset) of each output in the buffer
         blocks = smem = at = 0
@@ -178,6 +193,8 @@ def _run(pairs, max_displacement: int, indices, channels_first: bool) -> List[to
             _check(x, y, "local_corr")
         if any(x.device != pairs[0][0].device for x, _ in pairs):
             raise ValueError("local_corr_levels: all levels must be on one device")
+        if any(x.dtype != pairs[0][0].dtype for x, _ in pairs):
+            raise ValueError("local_corr_levels: all levels must have one dtype")
         K = len(wanted)
         out_strides = [
             (K * H * W, W, 1, H * W) if channels_first else (H * W * K, W * K, K, 1)
@@ -186,7 +203,7 @@ def _run(pairs, max_displacement: int, indices, channels_first: bool) -> List[to
         if len(_plans) >= MAX_PLANS:
             _plans.clear()
         plan = _plans[key] = _Plan(pairs, out_strides, max_displacement, wanted)
-    buf = torch.empty(plan.numel, dtype=torch.float32, device=plan.device)
+    buf = torch.empty(plan.numel, dtype=plan.dtype, device=plan.device)
     outs = [buf.as_strided(*o) for o in plan.outs]
     # this call's own copy of the table, so that calls from other threads
     # with the same shapes cannot swap pointers into it
@@ -204,15 +221,22 @@ def local_corr_levels(
     max_displacement: int = 4,
     indices: Optional[Sequence[int]] = None,
 ) -> List[torch.Tensor]:
-    """Up to three levels of NHWC (x, y) [B, H, W, C_l] float32 → a list of
-    [B, H, W, K] float32; on the card one launch, each result a view of a
-    channels-first [B, K, H, W] tensor (``.permute(0, 3, 1, 2)`` of it is
-    contiguous).  Differentiable in every x and y (one ``LocalCorr`` per
-    level under grad)."""
+    """Up to three levels of NHWC (x, y) [B, H, W, C_l], float32 or bf16 →
+    a list of [B, H, W, K] of that dtype; on the card one launch, each
+    result a view of a channels-first [B, K, H, W] tensor
+    (``.permute(0, 3, 1, 2)`` of it is contiguous).  Differentiable in every
+    x and y (one ``LocalCorrLevels`` under grad, still one launch)."""
     if not 1 <= len(pairs) <= MAX_LEVELS:
         raise ValueError(f"local_corr_levels: 1 to {MAX_LEVELS} levels, got {len(pairs)}")
     if torch.is_grad_enabled() and any(x.requires_grad or y.requires_grad for x, y in pairs):
-        return [local_corr(x, y, max_displacement, indices) for x, y in pairs]
+        wanted = None if indices is None else tuple(int(i) for i in indices)
+        return list(LocalCorrLevels.apply(max_displacement, wanted, *(t for xy in pairs for t in xy)))
+    return _levels_forward(pairs, max_displacement, indices)
+
+
+def _levels_forward(pairs, max_displacement: int, indices) -> List[torch.Tensor]:
+    """The twin level by level on the CPU, one kernel launch on the card;
+    no autograd."""
     if all(x.device.type == "cpu" for x, _ in pairs):
         return [plain(x, y, max_displacement, indices) for x, y in pairs]
     return _run(pairs, max_displacement, indices, channels_first=True)
@@ -224,8 +248,8 @@ def local_corr(
     max_displacement: int = 4,
     indices: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """NHWC x, y [B, H, W, C] float32 → [B, H, W, K] float32 (NHWC
-    contiguous), differentiable in x and y."""
+    """NHWC x, y [B, H, W, C], float32 or bf16 → [B, H, W, K] of that
+    dtype (NHWC contiguous), differentiable in x and y."""
     if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
         wanted = None if indices is None else tuple(int(i) for i in indices)
         return LocalCorr.apply(x, y, max_displacement, wanted)
@@ -245,15 +269,49 @@ class LocalCorr(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, y = ctx.saved_tensors
-        with torch.enable_grad():
-            xd = x.detach().requires_grad_(ctx.needs_input_grad[0])
-            yd = y.detach().requires_grad_(ctx.needs_input_grad[1])
-            out = plain(xd, yd, ctx.max_displacement, ctx.indices)
-            wrt = [t for t in (xd, yd) if t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wrt, grad))
-        gx = next(grads) if ctx.needs_input_grad[0] else None
-        gy = next(grads) if ctx.needs_input_grad[1] else None
+        gx, gy = _plain_vjp(x, y, grad, ctx.needs_input_grad[:2], ctx.max_displacement, ctx.indices)
         return gx, gy, None, None
+
+
+class LocalCorrLevels(torch.autograd.Function):
+    """``local_corr_levels`` with the twin's backward: the forward is one
+    kernel launch for every level, the backward ``_plain_vjp`` of each
+    level at its saved inputs.  Inputs: the displacement settings, then x
+    and y of each level in turn."""
+
+    @staticmethod
+    def forward(ctx, max_displacement, indices, *xy):
+        ctx.save_for_backward(*xy)
+        ctx.max_displacement = max_displacement
+        ctx.indices = indices
+        pairs = list(zip(xy[0::2], xy[1::2]))
+        return tuple(_levels_forward(pairs, max_displacement, indices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        xy = ctx.saved_tensors
+        out = [None, None]
+        for level, grad in enumerate(grads):
+            need = ctx.needs_input_grad[2 + 2 * level: 4 + 2 * level]
+            out += _plain_vjp(xy[2 * level], xy[2 * level + 1], grad, need,
+                              ctx.max_displacement, ctx.indices)
+        return tuple(out)
+
+
+def _plain_vjp(x, y, grad, need, max_displacement, indices):
+    """(dx, dy) of the twin's function at (x, y) for the output gradient
+    ``grad``, by autograd through its windowed formulation (a dozen ops a
+    level, where the displacement-by-displacement one takes hundreds of
+    small launches and holds a training step to the host's pace); None for
+    an input whose gradient ``need`` does not ask for."""
+    if not any(need):
+        return [None, None]
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_(need[0])
+        yd = y.detach().requires_grad_(need[1])
+        out = local_correlation_windowed(xd, yd, max_displacement, indices)
+        grads = iter(torch.autograd.grad(out, [t for t in (xd, yd) if t.requires_grad], grad))
+    return [next(grads) if n else None for n in need]
 
 
 def _forward(

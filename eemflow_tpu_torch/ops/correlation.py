@@ -8,7 +8,8 @@ the displacement (dy, dx) ∈ [-md, md]² at channel
     out[b, y, x, j] = (1/C) · Σ_c x[b, y, x, c] · y[b, y+dy, x+dx, c]
 
 with zeros outside the frame; ``indices`` selects the displacements to
-compute (EEMFlow's 53-channel diamond).  Inputs and output are NHWC.
+compute (EEMFlow's 53-channel diamond).  Inputs and output are NHWC, in
+float32 or bf16 (summed in float32, rounded once).
 
 ``local_correlation`` (one level) and ``local_correlation_levels`` (up to
 three, one launch) send CPU tensors to the plain twin below and CUDA
@@ -40,7 +41,11 @@ def local_correlation_plain(
     max_displacement: int = 4,
     indices: Optional[Sequence[int]] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch twin of K2: NHWC x, y [B, H, W, C] → [B, H, W, K]."""
+    """Plain PyTorch twin of K2: NHWC x, y [B, H, W, C] → [B, H, W, K].
+    Inputs below float32 (bf16) are correlated in float32 and the result
+    rounded once to their dtype, the kernel's definition."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return local_correlation_plain(x.float(), y.float(), max_displacement, indices).to(x.dtype)
     B, H, W, C = x.shape
     md = max_displacement
     k = 2 * md + 1
@@ -52,6 +57,44 @@ def local_correlation_plain(
         shifted = ypad[:, dy : dy + H, dx : dx + W, :]
         outs.append((x * shifted).sum(-1) * inv_c)
     return torch.stack(outs, dim=-1)
+
+
+_index_tensors: dict = {}
+
+
+def _index_tensor(wanted: tuple, device: torch.device) -> torch.Tensor:
+    """``wanted`` as an int64 tensor on ``device``, made once: a fresh copy
+    to the card each call would wait for the card."""
+    key = (wanted, device)
+    t = _index_tensors.get(key)
+    if t is None:
+        t = _index_tensors[key] = torch.tensor(wanted, device=device)
+    return t
+
+
+def local_correlation_windowed(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    max_displacement: int = 4,
+    indices: Optional[Sequence[int]] = None,
+) -> torch.Tensor:
+    """``local_correlation_plain``'s function in another formulation: each
+    position's window of ``y`` gathered once (``unfold``), the selected
+    displacements taken, and one batched product with ``x`` — a dozen
+    tensor ops under autograd where the plain version takes four a
+    displacement.  K2's backward differentiates it."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return local_correlation_windowed(x.float(), y.float(), max_displacement, indices).to(x.dtype)
+    B, H, W, C = x.shape
+    md = max_displacement
+    k = 2 * md + 1
+    # [B, H, W, C, k (dy), k (dx)] → dy-major displacement channels
+    win = F.pad(y, (0, 0, md, md, md, md)).unfold(1, k, 1).unfold(2, k, 1).reshape(B, H, W, C, k * k)
+    wanted = selected_displacements(md, indices)
+    if wanted != tuple(range(k * k)):
+        win = win.index_select(-1, _index_tensor(wanted, x.device))
+    inv_c = torch.tensor(1.0 / C, dtype=x.dtype)
+    return torch.einsum("bhwc,bhwck->bhwk", x, win) * inv_c
 
 
 def local_correlation(

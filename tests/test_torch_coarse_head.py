@@ -33,6 +33,16 @@ TOL = 1e-5
 CHANNELS = (16, 32, 64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_jax_params(seed=7, groups=1):
     """The coarse-stage params of an EEMFlow in the JAX layout (HWIO)."""
     rng = np.random.default_rng(seed)

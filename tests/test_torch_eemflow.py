@@ -28,6 +28,16 @@ SIZES = [(64, 96), (96, 128)]
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jax_apply():
     return jax.jit(JaxEEMFlow().apply)

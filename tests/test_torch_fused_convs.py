@@ -25,6 +25,16 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=0, atol=1e-3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chain(rng, cin, widths, concat=None):
     """HWIO kernels (scaled so activations stay O(1)) and biases of a chain."""
     concat = concat or (False,) * len(widths)

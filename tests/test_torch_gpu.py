@@ -648,3 +648,106 @@ def test_eemflow_forward_takes_one_k2_launch_and_no_copy(cuda):
         assert cv.is_contiguous()  # NCHW, as the decoder's concatenation reads it
         ref = k2.plain(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), 4, model.corr_indices).permute(0, 3, 1, 2)
         assert float((cv - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("batch", [1, 6], ids=["B1", "B6"])
+def test_local_corr_levels_bf16_matches_plain(cuda, batch):
+    """K2 on bf16 operands (the training forward's mixed precision): one
+    launch over the three levels' permuted NCHW views, bf16 out, against
+    the plain version (the float32 correlation of the bf16 operands,
+    rounded once): the two differ by the rounding of a float32 sum taken
+    in another order, within 5e-3 of max(1, |plain|)."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+
+    rng = np.random.default_rng(30 + batch)
+    pairs = []
+    for c in (16, 32, 64):
+        t = [torch.from_numpy(rng.standard_normal((batch, c, 12, 20)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+             for _ in range(2)]
+        pairs.append(tuple(x.permute(0, 2, 3, 1) for x in t))
+    before = launch_counts["local_corr"]
+    got = k2.local_corr_levels(pairs, 4, INDEX_53)
+    assert launch_counts["local_corr"] == before + 1
+    for (x, y), g in zip(pairs, got):
+        ref = k2.plain(x, y, 4, INDEX_53)
+        torch.cuda.synchronize()
+        assert g.dtype == torch.bfloat16 and g.shape == ref.shape and g.permute(0, 3, 1, 2).is_contiguous()
+        assert float((g.float() - ref.float()).abs().max()) <= 5e-3 * max(1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_local_corr_levels_backward_on_card(cuda, dtype):
+    """Under grad the three levels still take one launch (LocalCorrLevels);
+    the grads equal autograd through the twin's function."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+
+    rng = np.random.default_rng(40)
+    xs, ys = ([torch.from_numpy(rng.standard_normal((2, 12, 20, c)).astype(np.float32)).to(cuda).to(dtype)
+               .requires_grad_() for c in (16, 32, 64)] for _ in range(2))
+    before = launch_counts["local_corr"]
+    outs = k2.local_corr_levels(list(zip(xs, ys)), 4, INDEX_53)
+    assert launch_counts["local_corr"] == before + 1
+    assert all(isinstance(o.grad_fn, k2.LocalCorrLevels._backward_cls) for o in outs)
+    gs = [torch.randn_like(o) for o in outs]
+    got = torch.autograd.grad(outs, xs + ys, gs)
+    x2, y2 = ([t.detach().requires_grad_() for t in ts] for ts in (xs, ys))
+    ref = torch.autograd.grad([k2.plain(a, b, 4, INDEX_53) for a, b in zip(x2, y2)], x2 + y2, gs)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        tol = 1e-5 if dtype == torch.float32 else 5e-3 * max(1.0, float(r.float().abs().max()))
+        assert g.dtype == dtype and float((g.float() - r.float()).abs().max()) <= tol
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step (device voxelize with flips, forward, loss,
+    backward, clip, AdamW) from the same seeded parameters and batch at
+    128x256, B=2: on the card (K1 voxelize twice, K2 once) and on the CPU
+    (the plain versions).  Loss within 1e-4 relative; each parameter's
+    gradient within 1e-3 of its largest |g| (float32 in other summation
+    orders through two pyramids and their backward)."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.eemflow import EEMFlow
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    rng = np.random.default_rng(13)
+    h, w, B, N = 128, 256, 2, 8192
+    ev = np.zeros((2, B, N, 4), np.float32)
+    for f in range(2):
+        for b in range(B):
+            ev[f, b, :, 0] = np.sort(rng.uniform(0, 5e4, N))
+            ev[f, b, :, 1] = rng.integers(0, w, N)
+            ev[f, b, :, 2] = rng.integers(0, h, N)
+            ev[f, b, :, 3] = rng.integers(0, 2, N)
+    batch = {
+        "events_old": ev[0], "events_new": ev[1], "n_old": np.array([N, N - 100], np.int32),
+        "n_new": np.array([N - 7, N], np.int32), "flip_h": np.array([True, False]),
+        "flip_v": np.array([False, True]), "flow": (rng.standard_normal((B, 16, 16, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, 16, 16), np.float32),
+    }
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        state = create_train_state(EEMFlow(out_mesh_size=True), 5, make_optimizer(1e-3, num_steps=100), device=dev)
+        grads = {}
+        opt_step = state.opt.step
+
+        def step_recording_grads(state=state, grads=grads, opt_step=opt_step):
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()})
+            return opt_step()
+
+        state.opt.step = step_recording_grads
+        before = dict(launch_counts)
+        _, metrics = make_train_step(preprocess=make_device_preprocess(5, h, w))(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[dev.type] = (float(metrics["loss"]), grads, {k: launch_counts[k] - before[k] for k in launch_counts})
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    assert n_cpu["voxel_scatter"] == n_cpu["local_corr"] == 0
+    assert n_gpu["voxel_scatter"] == 2 and n_gpu["local_corr"] == 1
+    assert np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for name, g in g_cpu.items():
+        assert float((g_gpu[name] - g).abs().max()) <= 1e-3 * float(g.abs().max()), name

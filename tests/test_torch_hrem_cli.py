@@ -11,12 +11,23 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from eemflow_tpu.data.hrem import HREMEventFlow as JaxHREM
 from test_golden_acceptance import CKPT, GOLDEN, make_hrem_fixture
 
 from eemflow_tpu_torch.data.hrem import HREMEventFlow
 from eemflow_tpu_torch.tools.test_hrem import main
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -125,3 +136,25 @@ def test_update_block_bound():
     assert res["bound_by"] == "operations" and abs(res["bound_ms"] - 3 * res["flop"] / 495e9) < 1e-9
     assert abs(res["bf16_bound_ms"] - res["flop"] / 989e9) < 1e-9
     assert abs(res["fp32_simt_ms"] - res["flop"] / 67e9) < 1e-9
+
+
+def test_device_busy_ms_is_the_union_of_device_intervals(tmp_path):
+    """Overlapping kernels count once, copies and fills count, and the user
+    annotations and host ops the profiler also exports do not."""
+    from eemflow_tpu_torch.tools.profile_model import device_busy_ms
+
+    events = [
+        {"ph": "X", "cat": "kernel", "ts": 0, "dur": 10},
+        {"ph": "X", "cat": "kernel", "ts": 5, "dur": 10},  # overlaps the first
+        {"ph": "X", "cat": "kernel", "ts": 6, "dur": 2},  # inside both
+        {"ph": "X", "cat": "gpu_memcpy", "ts": 20, "dur": 5},
+        {"ph": "X", "cat": "gpu_memset", "ts": 30, "dur": 1.5},
+        {"ph": "X", "cat": "gpu_user_annotation", "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "cpu_op", "ts": 40, "dur": 50},
+        {"ph": "i", "cat": "kernel", "ts": 95},
+    ]
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": events}))
+    assert device_busy_ms(str(trace)) == pytest.approx((15 + 5 + 1.5) / 1e3)
+    trace.write_text(json.dumps({"traceEvents": events[5:]}))
+    assert device_busy_ms(str(trace)) is None

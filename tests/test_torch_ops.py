@@ -25,6 +25,16 @@ from eemflow_tpu_torch.ops.pooling import avg_pool2d
 from eemflow_tpu_torch.ops.upsample import resize_bilinear, upsample_flow_to
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 

@@ -30,6 +30,16 @@ HEAD_META = {
 K_CORR = 53
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _im2col(x: torch.Tensor) -> torch.Tensor:
     """NCHW [1, C, H, W] → [H·W, 9·C], K = tap (ky, kx) then channel: the
     order the kernel walks K and ``k_order`` packs the weights."""

@@ -15,6 +15,16 @@ from eemflow_tpu_torch.kernels.update_block import (
 K5_F32_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _emulated_mma(a: torch.Tensor, w: torch.Tensor, split: bool) -> torch.Tensor:
     """[M, K] @ [K, N] as the kernel's TF32 MMAs: operands rounded by
     cvt.rna, products summed in float32 per k8 step, the steps summed in

@@ -19,6 +19,16 @@ from eemflow_tpu_torch.kernels.voxel_scatter import voxel_scatter
 H, W, BINS = 24, 32, 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batch(seed=3, n_valid=(400, 700, 300), N=1024, dt_zero=(2,)):
     """Padded [B, N, 4] events: x and y one pixel past every edge, p in
     {0, 1}; samples in ``dt_zero`` have one shared timestamp."""

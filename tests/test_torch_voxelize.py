@@ -30,6 +30,16 @@ H, W, BINS, N = 24, 32, 5, 512
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: these tests share the machine with the suite's
+    other workers, and threads beyond its cores only wait for each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _events(rng, n, h=H, w=W, t=None, pix=None, margin=2):
     """[n, 4] time-sorted events (t, x, y, p): x and y ``margin`` pixels past
     every edge unless ``pix`` fixes them, p in {0, 1}; ``t`` fixes every
@@ -215,7 +225,7 @@ def test_local_corr_levels_grads_match_autograd(indices):
     base = _levels(rng, 2, LEVELS)
     pairs = [tuple(t.detach().clone().requires_grad_() for t in p) for p in base]
     outs = k2.local_corr_levels(pairs, 4, indices)
-    assert all(isinstance(o.grad_fn, k2.LocalCorr._backward_cls) for o in outs)
+    assert all(isinstance(o.grad_fn, k2.LocalCorrLevels._backward_cls) for o in outs)
     gs = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32)) for o in outs]
     got = torch.autograd.grad(outs, [t for p in pairs for t in p], gs)
     ref_in = [tuple(t.detach().clone().requires_grad_() for t in p) for p in base]
@@ -223,6 +233,36 @@ def test_local_corr_levels_grads_match_autograd(indices):
     want = torch.autograd.grad(refs, [t for p in ref_in for t in p], gs)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16", "windowed_f32"])
+def test_local_corr_levels_grads_match_plain_autograd(case):
+    """``LocalCorrLevels`` (one call, the twin on the CPU) gives plain
+    autograd's gradients for every level, in float32 and bf16; and the
+    windowed formulation its backward differentiates, called directly,
+    gives them in float32 for the 53 displacements and for all 81."""
+    from eemflow_tpu_torch.ops.correlation import local_correlation_windowed
+
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    rng = np.random.default_rng(5)
+    xs, ys = ([torch.from_numpy(rng.standard_normal((2, 6, 9, c)).astype(np.float32)).to(dtype).requires_grad_()
+               for c in (16, 32, 64)] for _ in range(2))
+    if case == "windowed_f32":
+        # the full window on the last level
+        index_sets = (INDEX_53, INDEX_53, None)
+        outs = [local_correlation_windowed(x, y, 4, i) for x, y, i in zip(xs, ys, index_sets)]
+    else:
+        index_sets = (INDEX_53,) * 3
+        outs = k2.local_corr_levels(list(zip(xs, ys)), 4, INDEX_53)
+        assert all(isinstance(o.grad_fn, k2.LocalCorrLevels._backward_cls) for o in outs)
+    gs = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32)).to(dtype) for o in outs]
+    got = torch.autograd.grad(outs, xs + ys, gs)
+    x2, y2 = ([t.detach().requires_grad_() for t in ts] for ts in (xs, ys))
+    ref = torch.autograd.grad([k2.plain(a, b, 4, i) for a, b, i in zip(x2, y2, index_sets)], x2 + y2, gs)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        tol = 1e-5 if dtype == torch.float32 else 5e-3 * max(1.0, float(r.abs().max()))
+        assert float((g.float() - r.float()).abs().max()) <= tol
 
 
 def test_local_corr_levels_validates_its_levels():
