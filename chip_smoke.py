@@ -12,7 +12,8 @@ where it stopped:
      power limit as ``nvidia-smi`` reports them;
   1. build: the kernels' ``nvcc`` calls, one per source, all started
      together (seconds, and the ``-Xptxas -v`` lines: registers and spills
-     of each kernel);
+     of each kernel), and the C++ event packer's ``g++`` (it must load: the
+     serving path's packer runs native);
   2. each kernel against its plain PyTorch twin at the main paths' shapes
      (K1 ``voxel_scatter`` and ``voxelize`` on the main path's batch and
      the edge cases: n_valid 0 and 1, every event out of frame, every event
@@ -24,7 +25,10 @@ where it stopped:
      (``LocalCorrLevels``, float32 and bf16); K3 fused conv chain + pool at
      the three 720×1280 pyramid levels for B=1 and 2, in float32 and in
      bf16 (the tensor-core kernel), on a ragged NHWC view, and on a small
-     concat chain (its SIMT version); K4 coarse head at the three 12×20
+     concat chain (its SIMT version); K3 on EEMFlow+'s own chains at their
+     720×1280 level shapes, float32 and bf16: the SGU's concat chain
+     (levels 5..2) and the decoders' dense chains (levels 6..2) on the SIMT
+     kernel, the fast pyramid's three chains on the tensor cores; K4 coarse head at the three 12×20
      levels for B=1 and 2, groups 5 and 1, at both cluster sizes, and at an
      8×15 grid and a grid that takes the device-memory scratch; K5 update
      block, both entry points, at ERAFT's 92×160 and 64×120 grids and an
@@ -41,7 +45,22 @@ where it stopped:
      {"fused_update": true}`` (the main path of K5, 24 launches, no input
      copied into another layout) and with bf16 operands; the golden AEEs,
      the agreement of the paths, and small forwards on the card against
-     the same forwards on the CPU;
+     the same forwards on the CPU; EEMFlow+ (golden checkpoint, one
+     sample) on the standard path and with ``--fast_pyramid
+     --fast_decoders --fast_sgu`` (K2 five launches a forward, K3's SIMT
+     kernel 9 and its tensor-core one 6), its golden AEE and a 96×128
+     forward on the card against the CPU;
+  3. (serve) the serving CLI on a consecutive synthetic stream at 720×1280
+     (8 frames, 30,000 events a window) with the golden EEMFlow checkpoint
+     in pair mode, ``--stream``, ``--stream --chunk 2``, ``--stream
+     --chunk 8`` (the whole stream one chunk), ``--batch 2 --stream``,
+     ``--host_voxelize``, ``--host_voxelize --stream --chunk 4``,
+     ``--bf16`` and ``--fast``, each with
+     its launch counts: the packer native, pair mode against the eval
+     path's flow, the stream modes and host voxelize against pair mode, the
+     host voxelizer's grids against K1's, bf16 against float32, ``--fast``
+     parity-safe, K1 once a frame in a stream and twice a sample in pair
+     mode; then ``-model eemflow_plus`` once;
   3b. train: the port's HREM training CLI on a seeded synthetic train split
      at 720×1280 (six samples, B=6, ``--device_voxelize``, two epochs of
      two steps), in bf16 (the default config) and in float32, each with
@@ -66,7 +85,14 @@ where it stopped:
      levels 1 and 2 timed again writing the pooled output alone); one
      720×1280 B=1 EEMFlow forward in the standard and the fused modes; one
      whole device-voxelize eval sample; the ERAFT forward at 720×1280 and
-     512×960, B=1, on the module path and with ``fused_update``; one
+     512×960, B=1, on the module path and with ``fused_update``; the
+     ``--fast`` candidates for EEMFlow (``siamese_stack``, ``fast_head`` +
+     ``fast_pyramid``, all three); EEMFlow+'s 9 SIMT K3 launches of one
+     fused 720×1280 forward (device, wrapper, bound, plain version, the
+     standard modules) and its standard and fused forwards (back to back,
+     and the device's busy share of a profiled run); the serving CLI at B=1
+     and B=2 in each mode (wall fps, host decode and dispatch ms a frame,
+     the device's busy share of the timed window); one
      720×1280 B=6 train step (device voxelize) in bf16 and float32, back to
      back, the device's busy time and share of one profiled run, and its
      peak memory.
@@ -77,6 +103,8 @@ of every ported kernel (``ms`` is device time; for K1 ``voxel_scatter`` at
 the three levels of a B=1 forward, float32, ``bf16_*`` on bf16 operands
 (``_b6`` at B=6); for K3 and K4 with the L2 cache flushed before each call,
 as a forward leaves their weights, and ``warm_ms`` without the flush; for
+K3's SIMT row (``fused_convs_pool_simt``) the 9 launches of one EEMFlow+
+fused forward, after an L2 flush; for
 K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
 the time per wrapper call back to back; ``standard_ms`` the device time of
 the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
@@ -104,6 +132,8 @@ GOLDEN_CKPT = os.path.join(REPO, "tests", "fixtures", "eemflow_hrem_golden.pth.t
 GOLDEN_JSON = os.path.join(REPO, "tests", "fixtures", "hrem_golden.json")
 ERAFT_CKPT = os.path.join(REPO, "tests", "fixtures", "eraft_hrem_golden.pth.tar")
 ERAFT_JSON = os.path.join(REPO, "tests", "fixtures", "hrem_golden_eraft.json")
+PLUS_CKPT = os.path.join(REPO, "tests", "fixtures", "eemflow_plus_hrem_golden.pth.tar")
+PLUS_JSON = os.path.join(REPO, "tests", "fixtures", "hrem_golden_plus.json")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32
 # outside the tensor cores, TF32 and bf16 on them, FLOP/s
@@ -150,6 +180,39 @@ K2_GRAD_TOL = 1e-5
 # carried through 12 iterations); bf16 operands against float32
 ERAFT_FUSED_TOL = 1e-3
 ERAFT_BF16_TOL = 0.05
+# EEMFlow+ forward, the card against the CPU and the fused modes against the
+# standard ones, relative to max(1, largest |flow|): float32 in other
+# summation orders carried through five levels of warp feedback
+PLUS_TOL = 1e-5
+# EEMFlow+'s K3 chains at 720x1280 (padded 768x1280): the SGU's concat chain
+# at levels 5..2, the decoders' dense chains at levels 6..2 (SIMT), and the
+# fast pyramid's three chains (tensor cores): (label, C, H, W, widths,
+# concat, relus, pool)
+_SGU = ((32, 32, 32, 16, 8, 3), (True,) * 5 + (False,), (True,) * 5 + (False,))
+_DEC = ((96, 96, 96, 96, 64, 32, 2), (False,) * 7, (True,) * 6 + (False,))
+PLUS_CHAINS = (
+    tuple((f"SGU level {l}", 64, h, w, *_SGU, None) for l, (h, w) in
+          zip((5, 4, 3, 2), ((24, 40), (48, 80), (96, 160), (192, 320))))
+    + tuple((f"decoder level {l}", 87, h, w, *_DEC, None) for l, (h, w) in
+            zip((6, 5, 4, 3, 2), ((12, 20), (24, 40), (48, 80), (96, 160), (192, 320))))
+    + (("pyramid level 1", 16, 384, 640, (16,), (False,), (True,), None),
+       ("pyramid level 2", 32, 192, 320, (32, 32), (False,) * 2, (True,) * 2, None),
+       ("pyramid level 3", 64, 96, 160, (64, 64), (False,) * 2, (True,) * 2, 2))
+)
+# serving: a consecutive synthetic stream at 720x1280, 30,000 events a frame
+SERVE_FRAMES = 8
+# a served .flo against another path to the same flow (the JAX CLI's limit)
+SERVE_TOL = 1e-4
+# --host_voxelize's grid against K1's, relative to max(1, largest |cell|):
+# both sum a cell's votes in float32 (in event order on the host, in no
+# fixed order on the card) and normalize with float64 statistics
+HOSTVOX_GRID_TOL = 1e-5
+# --bf16 against float32: relative L2 of the flow (bf16 keeps 8 mantissa
+# bits; ~25 roundings of conv operands through pyramid and decoders)
+SERVE_BF16_REL_L2 = 0.02
+# a parity-safe --fast: mean end-point distance to the standard path's flow
+# (px), the 1e-5 of PERF.md section 2
+FAST_EPE_TOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -409,6 +472,12 @@ def phase_build() -> None:
     for line in build.build_log.splitlines():
         if "ptxas" in line or "spill" in line:
             say(line.strip())
+    from eemflow_tpu_torch import native
+
+    t0 = time.perf_counter()
+    require(native.have_native(), f"the C++ event packer did not build: {native.native_status()}")
+    say(f"event packer (g++ {' '.join(native.FLAGS)}): {native.native_status()}, "
+        f"{time.perf_counter() - t0:.1f} s to build and load")
 
 
 def ptxas_lines(name: str) -> list:
@@ -449,10 +518,57 @@ def phase_parity(device: torch.device) -> dict:
     k2_err = max(k2_err, levels_err)
     phase_parity_k2_backward(device, rng)
     k3_err = phase_parity_k3(device, rng)
+    simt_err, tc_err = phase_parity_k3_plus(device, rng)
     k4_err = phase_parity_k4(device, rng)
     k5_err = phase_parity_k5(device, rng)
     return {"voxel_scatter": k1_err, "voxelize": voxelize_err, "local_corr": k2_err, "local_corr_bf16": k2_bf16_err,
-            "fused_convs_pool": k3_err, "coarse_head": k4_err, "update_block": k5_err}
+            "fused_convs_pool": max(k3_err, tc_err), "fused_convs_pool_simt": simt_err, "coarse_head": k4_err,
+            "update_block": k5_err}
+
+
+def phase_parity_k3_plus(device: torch.device, rng):
+    """K3 on EEMFlow+'s own chains at their 720x1280 level shapes, B=1,
+    He-scaled random weights, float32 and bf16: the SGU's concat chain and
+    the decoders' dense chains on the SIMT kernel (neither is
+    ``tc_eligible``), the fast pyramid's chains on the tensor cores; each
+    against the plain version.  Returns the largest float32 differences
+    (SIMT, tensor cores)."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.ops.fused_convs import chain_channels
+
+    worst = {"simt": 0.0, "tc": 0.0}
+    for label, cin, h, w, widths, concat, relus, pool in PLUS_CHAINS:
+        x = torch.from_numpy(rng.standard_normal((1, cin, h, w)).astype(np.float32)).to(device)
+        ws, bs = [], []
+        c = cin
+        for f, cat in zip(widths, concat):
+            w_, b_ = conv_params(rng, (c,), (f,), device)
+            ws += w_
+            bs += b_
+            c = f + (c if cat else 0)
+        chain = chain_channels(cin, ws, concat)
+        route = "tc" if k3.tc_eligible(chain, concat) else "simt"
+        for dtype in (torch.float32, torch.bfloat16):
+            counter = "fused_convs_pool" if route == "tc" else "fused_convs_pool_simt"
+            before = launch_counts[counter]
+            got = k3.fused_convs(x, ws, bs, pool, dtype, True, relus, concat)
+            require(launch_counts[counter] == before + 1, f"K3 EEMFlow+ {label} did not take one {route} launch")
+            ref = k3.plain(x, ws, bs, pool, dtype, True, relus, concat)
+            torch.cuda.synchronize()
+            tol = K3_TOL[str(dtype).split(".")[1]]
+            for what, g, r in zip(("full", "pooled"), got, ref):
+                if g is None:
+                    continue
+                err, scale = rel_err(g, r)
+                if dtype == torch.float32:
+                    worst[route] = max(worst[route], err)
+                say(f"K3 EEMFlow+ {label} [1,{cin},{h},{w}] channels {chain} ({route} kernel, "
+                    f"tc_eligible {route == 'tc'}) {str(dtype)[6:]}: {what} max|Δ| {err:.3e} "
+                    f"(tolerance {tol:g}·{scale:.2f} = {tol * scale:.3e})")
+                require(bool(torch.isfinite(g).all()) and err <= tol * scale,
+                        f"K3 disagrees with its plain version on EEMFlow+'s {label} ({what}, {dtype})")
+    return worst["simt"], worst["tc"]
 
 
 def phase_parity_k1(device: torch.device, rng):
@@ -845,6 +961,8 @@ def phase_end_to_end(device: torch.device, tmp: str) -> dict:
         require(bool(torch.isfinite(got[-1]).all()) and err <= FORWARD_TOL,
                 f"{label} forward on the card disagrees with the CPU")
     launches.update(phase_end_to_end_eraft(device, tmp))
+    launches.update(phase_end_to_end_plus(device, tmp))
+    phase_serve(device, tmp)
     return launches
 
 
@@ -916,6 +1034,224 @@ def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
         require(bool(torch.isfinite(got).all()) and err <= FORWARD_TOL,
                 f"ERAFT {label} forward on the card disagrees with the CPU")
     return {"update_block": counts["fused_update"]["update_block"]}
+
+
+def forward_flows(model, ev1, ev2):
+    with torch.inference_mode():
+        return model(ev1, ev2)[1][-1]
+
+
+def phase_end_to_end_plus(device: torch.device, tmp: str) -> dict:
+    """EEMFlow+ through the eval CLI on the golden sample at 720x1280: the
+    standard path, then ``--fast_pyramid --fast_decoders --fast_sgu`` (K3's
+    tensor-core kernel for the pyramid, its SIMT kernel for the decoders
+    and the SGU), each with its own launch counts; K2 five launches a
+    forward.  Then a 96x128 forward on the card against the CPU."""
+    from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.tools.test_hrem import main as test_hrem
+
+    with open(PLUS_JSON) as f:
+        golden = json.load(f)
+    root = make_hrem_fixture(os.path.join(tmp, "plus"), seed=golden["fixture_seed"])
+    aee, counts = {}, {}
+    for label, extra in (("standard", []), ("fused", ["--fast_pyramid", "--fast_decoders", "--fast_sgu"])):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = test_hrem([
+            "-model", "eemflow_plus", "-int", "dt1", "--data_root", root, "--checkpoint", PLUS_CKPT,
+            "--save_dir", os.path.join(tmp, "out_plus"), "--max_samples", str(golden["max_samples"]),
+            "--device", str(device), *extra,
+        ])
+        counts[label] = dict(launch_counts)
+        aee[label] = res["mean"]["AEE"]
+        say(f"EEMFlow+ {label} {extra}: AEE {aee[label]:.7f} over {res['indoor_fast']['n_samples']} sample in "
+            f"{time.perf_counter() - t0:.1f} s; launches {counts[label]}")
+    std, fused = aee["standard"], aee["fused"]
+    say(f"EEMFlow+ golden AEE {golden['aee']:.7f}: standard |Δ| {abs(std - golden['aee']):.3e}, fused |Δ| "
+        f"{abs(fused - golden['aee']):.3e} (tolerance {GOLDEN_TOL:g}); fused vs standard |Δ| {abs(fused - std):.3e} "
+        f"(tolerance {PATH_TOL:g})")
+    require(abs(std - golden["aee"]) < GOLDEN_TOL and abs(fused - golden["aee"]) < GOLDEN_TOL,
+            "EEMFlow+ golden AEE drifted")
+    require(abs(fused - std) < PATH_TOL, "EEMFlow+'s fused AEE differs from the standard one")
+    # one sample: one forward of two frames
+    require(counts["standard"]["local_corr"] == 5 and counts["fused"]["local_corr"] == 5,
+            "EEMFlow+ did not take five K2 launches a forward")
+    require(counts["standard"]["fused_convs_pool_simt"] == 0 and counts["fused"]["fused_convs_pool_simt"] == 9,
+            "EEMFlow+'s fused forward did not run K3's SIMT kernel 9 times (4 SGU levels, 5 decoders)")
+    require(counts["fused"]["fused_convs_pool"] == 6, "EEMFlow+'s fused pyramid did not take 6 tensor-core K3 launches")
+
+    rng = np.random.default_rng(31)
+    ev1, ev2 = (torch.from_numpy(rng.standard_normal((1, 96, 128, BINS)).astype(np.float32)) for _ in range(2))
+    ref = None
+    for label, kw in (("standard", {}), ("fused", dict(fast_pyramid=True, fast_decoders=True, fast_sgu=True))):
+        model = get_eval_model("eemflow_plus", **kw)
+        load_model_checkpoint(model, PLUS_CKPT, "eemflow_plus")
+        if ref is None:
+            ref = forward_flows(model, ev1, ev2)
+        got = forward_flows(model.to(device), ev1.to(device), ev2.to(device)).cpu()
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        say(f"EEMFlow+ forward 96x128 {label}, card vs the CPU's standard forward: max|Δ| {err:.3e} (tolerance "
+            f"{PLUS_TOL:g}·{scale:.2f})")
+        require(bool(torch.isfinite(got).all()) and err <= PLUS_TOL * scale,
+                f"EEMFlow+ {label} forward on the card disagrees with the CPU")
+    return {"fused_convs_pool_simt": counts["fused"]["fused_convs_pool_simt"]}
+
+
+def make_serve_stream(base: str, n_frames: int = SERVE_FRAMES, n_events: int = 30000, seed: int = 41) -> str:
+    """A consecutive synthetic dt1 stream at 720x1280 in the HREM test
+    layout: ``n_frames`` samples, sample i's events2 = sample i+1's
+    events1, 30,000 events a window; a random flow.flo each (the eval
+    dataset reads it)."""
+    from eemflow_tpu_torch.events.io import write_flo
+
+    rng = np.random.default_rng(seed)
+    windows = [dict(x=rng.integers(0, W, n_events).astype(np.int32), y=rng.integers(0, H, n_events).astype(np.int32),
+                    t=np.sort(rng.integers(0, 10**9, n_events)).astype(np.int64),
+                    p=rng.integers(0, 2, n_events).astype(np.int8)) for _ in range(n_frames + 1)]
+    root = os.path.join(base, "serve")
+    for i in range(n_frames):
+        d = os.path.join(root, "test", "dt1", "indoor_fast", f"{i:05d}")
+        os.makedirs(d, exist_ok=True)
+        np.savez(os.path.join(d, "events1.npz"), **windows[i])
+        np.savez(os.path.join(d, "events2.npz"), **windows[i + 1])
+        write_flo((rng.standard_normal((H, W, 2)) * 2).astype(np.float32), os.path.join(d, "flow.flo"))
+    return root
+
+
+def read_flows(out_dir: str) -> dict:
+    from eemflow_tpu_torch.events.io import read_flo
+
+    return {f: read_flo(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+
+
+# serving modes of phase 3 (EEMFlow, golden checkpoint): (label, flags, K1
+# calls on the 8-frame stream: two a sample in pair mode, one a frame in a
+# stream after its prime, none with host voxelize)
+SERVE_MODES = (
+    ("pair", [], 2 * SERVE_FRAMES),
+    ("stream", ["--stream"], 1 + SERVE_FRAMES),
+    ("stream chunk 2", ["--stream", "--chunk", "2"], 1 + SERVE_FRAMES),
+    ("stream chunk 8", ["--stream", "--chunk", str(SERVE_FRAMES)], 1 + SERVE_FRAMES),
+    ("batch 2 stream", ["--batch", "2", "--stream"], 2 + SERVE_FRAMES // 2),
+    ("host_voxelize", ["--host_voxelize"], 0),
+    ("host_voxelize stream chunk 4", ["--host_voxelize", "--stream", "--chunk", "4"], 0),
+    ("bf16", ["--bf16"], 2 * SERVE_FRAMES),
+    ("fast", ["--fast"], 2 * SERVE_FRAMES),
+)
+
+
+def phase_serve(device: torch.device, tmp: str) -> None:
+    """The serving CLI on a consecutive 720x1280 stream (8 frames, 30,000
+    events a window) with the golden EEMFlow checkpoint, in every mode, each
+    with its launch counts set to 0 just before it: the packer on its
+    native path; pair mode against the eval path's flow (``Tester`` with
+    device voxelize) for the same samples; ``--stream``, ``--chunk`` and
+    ``--batch 2 --stream`` against pair mode; ``--host_voxelize``'s grids
+    against K1's and its flows against pair mode; ``--bf16`` against
+    float32; ``--fast`` against the standard path; K1 once a frame in a
+    stream's steady state, twice a sample in pair mode.  Then EEMFlow+
+    served once."""
+    from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.data.hrem import HREMEventFlow
+    from eemflow_tpu_torch.eval.runner import Tester
+    from eemflow_tpu_torch.events.voxel import voxelize_batch_nhwc
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
+    from eemflow_tpu_torch.native import HostVoxelizer
+    from eemflow_tpu_torch.tools.serve import main as serve
+
+    phase("3 serve: the serving CLI at 720x1280 on a consecutive stream, golden checkpoint")
+    root = make_serve_stream(tmp)
+    flows, counts = {}, {}
+    for label, extra, k1_calls in SERVE_MODES:
+        out = os.path.join(tmp, "served", label.replace(" ", "_").replace(",", ""))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = serve(["--checkpoint", GOLDEN_CKPT, "--data_root", root, "--size", str(H), str(W), "--warmup", "0",
+                     "--out_dir", out, "--device", str(device), *extra])
+        counts[label] = dict(launch_counts)
+        flows[label] = read_flows(out)
+        say(f"serve {label} {extra}: {res['frames']} frames in {time.perf_counter() - t0:.1f} s (with the model's "
+            f"load); packer {res['packer']}; launches {counts[label]}")
+        require(res["packer"].startswith("native") and res["frames"] == SERVE_FRAMES
+                and len(flows[label]) == SERVE_FRAMES, f"serve {label} did not serve every frame on the native packer")
+        require(counts[label]["voxel_scatter"] == k1_calls,
+                f"serve {label}: {counts[label]['voxel_scatter']} K1 calls, not {k1_calls}")
+        if label != "fast":
+            require(counts[label]["local_corr"] == SERVE_FRAMES // (2 if "batch 2" in label else 1),
+                    f"serve {label} did not take one K2 launch a forward")
+    say(f"K1 calls on the {SERVE_FRAMES}-frame stream: pair {counts['pair']['voxel_scatter']} (two a sample), stream "
+        f"{counts['stream']['voxel_scatter']} (one prime, then one a frame), chunk 2 "
+        f"{counts['stream chunk 2']['voxel_scatter']}, batch 2 stream {counts['batch 2 stream']['voxel_scatter']} "
+        f"(two primes, one batched call a frame of both rows), host_voxelize {counts['host_voxelize']['voxel_scatter']}")
+
+    # pair mode against the eval path (test_hrem --device_voxelize's Tester)
+    model = get_eval_model("eemflow")
+    load_model_checkpoint(model, GOLDEN_CKPT, "eemflow")
+    ds = HREMEventFlow(root, raw_events=True, bucket_size=1 << 16)
+    ds.change_test_sequence("indoor_fast")
+    tester = Tester(model, device, preprocess=make_device_preprocess(BINS, H, W))
+    pair = flows["pair"]
+    names = sorted(pair)
+    err = max(float(np.abs(tester.run_sample(ds[i]) - pair[n]).max()) for i, n in enumerate(names))
+    say(f"serve pair .flo vs the eval path's flow (Tester, device voxelize) on the same samples: max|Δ| {err:.3e} "
+        f"(tolerance {SERVE_TOL:g}); largest |flow| {max(float(np.abs(f).max()) for f in pair.values()):.3f}")
+    require(err <= SERVE_TOL, "the served flow differs from the eval path's")
+    for label in ("stream", "stream chunk 2", "stream chunk 8", "batch 2 stream", "host_voxelize",
+                  "host_voxelize stream chunk 4"):
+        err = max(float(np.abs(flows[label][n] - pair[n]).max()) for n in names)
+        say(f"serve {label} vs pair: max|Δ| {err:.3e} (tolerance {SERVE_TOL:g})")
+        require(err <= SERVE_TOL, f"serve {label} differs from pair mode")
+
+    # host voxelize: the grids against K1's on the same packed events
+    hvox = HostVoxelizer(BINS, H, W)
+    grid_err, grid_scale = 0.0, 1.0
+    for i in range(len(ds)):
+        s = ds[i]
+        for key in ("old", "new"):
+            rows, n = s[f"events_{key}"], int(s[f"n_{key}"])
+            host = torch.from_numpy(hvox(rows, n))
+            dev = voxelize_batch_nhwc(torch.from_numpy(rows)[None].to(device),
+                                      torch.tensor([n], dtype=torch.int32).to(device), BINS, H, W)
+            dev = dev.permute(0, 3, 1, 2)[0].cpu()
+            grid_err = max(grid_err, float((host - dev).abs().max()))
+            grid_scale = max(grid_scale, float(dev.abs().max()))
+    say(f"serve --host_voxelize grids vs K1 voxelize on the same packed events: max|Δ| {grid_err:.3e} (tolerance "
+        f"{HOSTVOX_GRID_TOL:g}·{grid_scale:.2f})")
+    require(grid_err <= HOSTVOX_GRID_TOL * grid_scale, "the host voxelizer's grids differ from K1's")
+
+    a = np.stack([pair[n] for n in names])
+    b = np.stack([flows["bf16"][n] for n in names])
+    rel = float(np.linalg.norm(b - a) / np.linalg.norm(a))
+    say(f"serve --bf16 vs float32: relative L2 {rel:.3e} (limit {SERVE_BF16_REL_L2:g}), max|Δ| "
+        f"{float(np.abs(b - a).max()):.3e}")
+    require(np.isfinite(b).all() and rel <= SERVE_BF16_REL_L2, "bf16 serving is off float32 beyond its limit")
+    f = np.stack([flows["fast"][n] for n in names])
+    epe = float(np.linalg.norm(f - a, axis=-1).mean())
+    err = float(np.abs(f - a).max())
+    say(f"serve --fast ({fast_eval_kwargs('eemflow')}) vs the standard path: mean end-point distance {epe:.3e} px "
+        f"(limit {FAST_EPE_TOL:g}), max|Δ| {err:.3e} (tolerance {FORWARD_TOL:g}); launches {counts['fast']}")
+    require(epe <= FAST_EPE_TOL and err <= FORWARD_TOL, "--fast is not parity-safe")
+    fast = fast_eval_kwargs("eemflow")
+    require(counts["fast"]["coarse_head"] == (SERVE_FRAMES if fast.get("fast_head") else 0)
+            and counts["fast"]["fused_convs_pool"] == (6 * SERVE_FRAMES if fast.get("fast_pyramid") else 0),
+            f"serve --fast ({fast}) did not launch the kernels of its modes once a forward")
+
+    # EEMFlow+ served once
+    out = os.path.join(tmp, "served", "plus")
+    reset_launch_counts()
+    res = serve(["-model", "eemflow_plus", "--checkpoint", PLUS_CKPT, "--data_root", root, "--size", str(H), str(W),
+                 "--warmup", "0", "--out_dir", out, "--device", str(device)])
+    plus_counts = dict(launch_counts)
+    plus = read_flows(out)
+    say(f"serve -model eemflow_plus: {res['frames']} frames; launches {plus_counts}")
+    require(res["frames"] == SERVE_FRAMES and all(np.isfinite(v).all() and v.shape == (H, W, 2) for v in plus.values())
+            and plus_counts["local_corr"] == 5 * SERVE_FRAMES and plus_counts["voxel_scatter"] == 2 * SERVE_FRAMES,
+            "serve -model eemflow_plus did not serve finite flows with K1 twice and K2 five times a sample")
 
 
 TRAIN_BATCH = 6  # the config's bs
@@ -1171,8 +1507,186 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> t
 
     k5_row = times_k5(device, errs, launches)
     times_eraft(device)
+    times_fast_candidates(device, sd, x1, x2)
+    simt_row = times_plus(device, tmp, errs, launches)
+    times_serve(device, tmp)
     train = times_train(device, tmp)
-    return [k1_row, k2_row, k3_row, k4_row, k5_row], train
+    return [k1_row, k2_row, k3_row, simt_row, k4_row, k5_row], train
+
+
+# the --fast candidates timed on the card (models/registry.FAST_EVAL_KWARGS
+# maps EEMFlow to the fastest parity-safe one)
+FAST_CANDIDATES = (
+    ("standard", {}),
+    ("siamese_stack", {"siamese_stack": True}),
+    ("fast_head + fast_pyramid", {"fast_head": True, "fast_pyramid": True}),
+    ("all three", {"siamese_stack": True, "fast_head": True, "fast_pyramid": True}),
+)
+
+
+def times_fast_candidates(device, sd, x1, x2) -> None:
+    """The ``--fast`` candidates for EEMFlow, one 720x1280 B=1 forward each
+    (golden weights): back to back, on the device (queued), and its flow
+    against the standard forward's (max|Δ| and mean end-point distance)."""
+    from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
+
+    ref = None
+    for label, kw in FAST_CANDIDATES:
+        m = get_eval_model("eemflow", **kw)
+        m.load_state_dict(sd)
+        m.to(device)
+        flow = forward_flows(m, x1, x2)
+        if ref is None:
+            ref = flow
+        err = float((flow - ref).abs().max())
+        epe = float(torch.linalg.vector_norm(flow - ref, dim=-1).mean())
+        b2b = cuda_ms(lambda: forward_flows(m, x1, x2), reps=20)
+        dev = queued_ms(lambda: forward_flows(m, x1, x2), reps=2)
+        say(f"--fast candidate {label} {kw}: EEMFlow forward 720x1280 B=1 {b2b:.3f} ms back to back "
+            f"({1e3 / b2b:.1f} fps), {dev:.3f} ms on the device (queued); vs standard max|Δ| {err:.3e}, mean "
+            f"end-point distance {epe:.3e} px (parity-safe: {epe <= FAST_EPE_TOL and err <= FORWARD_TOL})")
+    say(f"--fast maps eemflow to {fast_eval_kwargs('eemflow')} (models/registry.FAST_EVAL_KWARGS)")
+
+
+def times_plus(device, tmp: str, errs: dict, launches: dict) -> dict:
+    """EEMFlow+ at 720x1280 B=1 (golden weights): the nine launches of K3's
+    SIMT kernel in one fused forward (4 SGU levels, 5 decoders), on the
+    forward's own inputs, on the device (queued, after an L2 flush) and per
+    wrapper call back to back, beside their bound (the function's float32
+    FLOP at the SIMT peak, or its bytes), the plain versions and the
+    standard modules for the same work (cuDNN: the SGU's dense estimator,
+    the decoders); then the standard and fused forwards back to back and
+    the device's busy time and share of one profiled run of each."""
+    import eemflow_tpu_torch.models.eemflow_plus as plus_module
+    from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.ops.fused_convs import chain_channels
+
+    models = {}
+    for label, kw in (("standard", {}), ("fused", dict(fast_pyramid=True, fast_decoders=True, fast_sgu=True))):
+        models[label] = get_eval_model("eemflow_plus", **kw)
+        load_model_checkpoint(models[label], PLUS_CKPT, "eemflow_plus")
+        models[label].to(device)
+    x1, x2 = (torch.randn(1, H, W, BINS, device=device) for _ in range(2))
+    # the SIMT launches of one fused forward, with their inputs
+    calls = []
+    real = plus_module.fused_convs
+
+    def recording(x, ws, bs, pool, dtype, emit_full, relus=None, concat=None, packed=None):
+        if packed is not None and packed[0][2] == "simt":
+            calls.append((x, ws, bs, pool, dtype, emit_full, relus, concat or (False,) * len(ws), packed))
+        return real(x, ws, bs, pool, dtype, emit_full, relus, concat, packed)
+
+    plus_module.fused_convs = recording
+    try:
+        forward_flows(models["fused"], x1, x2)
+    finally:
+        plus_module.fused_convs = real
+    require(len(calls) == 9, f"one fused EEMFlow+ forward made {len(calls)} SIMT K3 launches, not 9")
+    fused_model = models["fused"]
+    decoders = iter(getattr(fused_model, f"decoder{l}") for l in (6, 5, 4, 3, 2))
+    standard_mods = [fused_model.cdc_model.dense_estimator_mask if c[0].shape[1] == 64 else next(decoders)
+                     for c in calls]
+    flops = nbytes = 0
+    worst = 0.0
+    with torch.inference_mode():
+        for (x, ws, bs, pool, dtype, emit_full, relus, concat, packed), mod in zip(calls, standard_mods):
+            chain = chain_channels(x.shape[1], ws, concat)
+            B_, _, h, w = x.shape
+            # the function's work from the module's own weights: the fused
+            # decoders take grouped convs as dense kernels whose
+            # off-group products are zeros, which the function does not need
+            convs = [m for m in mod.modules() if isinstance(m, torch.nn.Conv2d)]
+            require(len(convs) == len(ws) and all(c.stride == (1, 1) for c in convs),
+                    f"the standard module of the K3 SIMT chain {chain} has other convs than the chain")
+            flops += sum(2 * B_ * h * w * c.weight.numel() for c in convs)
+            nbytes += 4 * (x.numel() + sum(c.weight.numel() + c.bias.numel() for c in convs) + B_ * chain[-1] * h * w)
+            got, _ = real(x, ws, bs, pool, dtype, emit_full, relus, concat, packed)
+            ref, _ = k3.plain(x, ws, bs, pool, dtype, emit_full, relus, concat)
+            err, scale = rel_err(got, ref)
+            worst = max(worst, err)
+            require(err <= K3_TOL["float32"] * scale, f"K3 SIMT on EEMFlow+'s forward input {list(x.shape)} disagrees")
+
+        def simt():
+            return [real(*c) for c in calls]
+
+        def plain():
+            return [k3.plain(x, ws, bs, pool, dtype, emit_full, relus, concat)
+                    for x, ws, bs, pool, dtype, emit_full, relus, concat, _ in calls]
+
+        def standard():
+            return [m(c[0]) for m, c in zip(standard_mods, calls)]
+
+        dev = cold_queued_ms(simt, 5, device)
+        warm = queued_ms(simt, reps=5)
+        wrapper = cuda_ms(simt, reps=5)
+        plain_ms = cuda_ms(plain, reps=5)
+        std_ms = cold_queued_ms(standard, 2, device)
+    bound, by = bound_ms(nbytes, flops)
+    tiles = sorted({str(k3._plan_tile(chain_channels(c[0].shape[1], c[1], c[7]), None)) for c in calls})
+    say(f"K3 SIMT (fused_convs.cu), the 9 launches of one EEMFlow+ 720x1280 B=1 fused forward (SGU levels 5..2, "
+        f"decoders 6..2; tiles {', '.join(tiles)}): {dev:.4f} ms on the device after an L2 flush ({warm:.4f} warm, "
+        f"queued; {flops / dev / 1e9:.1f} TFLOP/s of the function), {wrapper:.4f} ms of wrapper calls back to back; "
+        f"bound {bound:.4f} ms ({by}: {flops} FLOP of the function, the grouped convs as grouped, at the float32 "
+        f"SIMT peak; {nbytes} B); plain versions "
+        f"{plain_ms:.4f} ms; standard modules (cuDNN convs, the decoders' grouped convs as grouped) {std_ms:.4f} ms "
+        f"on the device after an L2 flush; max|Δ| to the plain version on these inputs {worst:.3e}")
+    errs["fused_convs_pool_simt"] = max(errs["fused_convs_pool_simt"], worst)
+    for label, m in models.items():
+        run = lambda m=m: forward_flows(m, x1, x2)
+        flow = run()
+        require(tuple(flow.shape) == (1, H, W, 2) and bool(torch.isfinite(flow).all()),
+                f"EEMFlow+ 720x1280 {label} forward is not finite or has the wrong shape")
+        b2b = cuda_ms(run, reps=10, warmup=2)
+        prof = profiled_step(run, reps=5, tmp=tmp)
+        say(f"EEMFlow+ forward 720x1280 B=1, {label}: {b2b:.3f} ms back to back ({1e3 / b2b:.1f} fps); profiled "
+            f"{prof['profiled_ms']:.3f} ms a forward, the device busy {prof['busy_ms']:.3f} ms of it "
+            f"({100 * prof['busy_share']:.1f}%, {prof['device_ops']:.0f} kernels and copies)")
+    return {
+        "name": "fused_convs_pool_simt", "route": "cuda",
+        "source": "eemflow_tpu_torch/kernels/csrc/fused_convs.cu",
+        "replaces": "eemflow_tpu/ops/pallas/fused_convs.py:176",
+        "launches": launches["fused_convs_pool_simt"], "max_abs_err": errs["fused_convs_pool_simt"],
+        "ms": dev, "warm_ms": warm, "wrapper_ms": wrapper, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None, "standard_ms": std_ms,
+    }
+
+
+# serving modes timed in phase 4, at B=1 and B=2
+SERVE_TIMED = (
+    ("pair", []), ("stream", ["--stream"]), ("stream chunk 2", ["--stream", "--chunk", "2"]),
+    ("host_voxelize", ["--host_voxelize"]), ("host_voxelize stream", ["--host_voxelize", "--stream"]),
+    ("bf16", ["--bf16"]), ("fast", ["--fast"]), ("fast stream", ["--fast", "--stream"]),
+)
+SERVE_LOOPS = 4
+
+
+def times_serve(device, tmp: str) -> None:
+    """The serving CLI on phase 3's serving stream (8 samples, ``--loops
+    4``, one warm-up batch untimed) at B=1 and B=2 in each mode: wall fps,
+    host decode and dispatch ms a frame (the CLI's report), and the
+    device's busy share of the timed window from a second run under
+    ``--profile``."""
+    from eemflow_tpu_torch.tools.serve import main as serve
+
+    root = os.path.join(tmp, "serve")
+    runs = {}
+    for rnd in ("timed", "profiled"):
+        for batch in (1, 2):
+            for label, extra in SERVE_TIMED:
+                prof = ["--profile", os.path.join(tmp, "serve_trace")] if rnd == "profiled" else []
+                res = serve(["--checkpoint", GOLDEN_CKPT, "--data_root", root, "--size", str(H), str(W),
+                             "--loops", str(SERVE_LOOPS), "--warmup", "1", "--batch", str(batch),
+                             "--device", str(device), *prof, *extra])
+                require(res["frames"] > 0 and (rnd != "profiled" or res["busy_share"] is not None),
+                        f"serve {label} B={batch} was not timed")
+                runs.setdefault((batch, label), {})[rnd] = res
+    for (batch, label), r in runs.items():
+        a, p = r["timed"], r["profiled"]
+        say(f"serve timing B={batch} {label}: {a['fps']:.1f} fps wall ({a['frames']} frames), host decode "
+            f"{a['host_ms']:.3f} ms/frame, dispatch {a['dispatch_ms']:.3f} ms/frame; under --profile {p['fps']:.1f} "
+            f"fps, the device busy {100 * p['busy_share']:.1f}% of the timed window")
 
 
 def times_k1(device, errs: dict, launches: dict) -> dict:
@@ -1234,15 +1748,44 @@ def times_k1(device, errs: dict, launches: dict) -> dict:
     return row
 
 
+def device_kernels(fn, complete=lambda kernels: len(kernels) > 0) -> list:
+    """(name, device ms) of each kernel, copy and fill of one call of
+    ``fn``, in launch order, from torch.profiler's exported trace.  CUPTI
+    has delivered traces with records missing on an H100 machine (an empty
+    trace; a K5 pair one conv short), so a trace that ``complete`` rejects
+    is taken again, at most twice, and a line says so.  A function that
+    launches other kernels than expected fails all three."""
+    from eemflow_tpu_torch.tools.profile_model import DEVICE_CATEGORIES
+
+    fn()
+    torch.cuda.synchronize()
+    kernels = []
+    for attempt in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        fd, trace = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(trace)
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(trace)
+        kernels = [(e["name"], float(e["dur"]) / 1e3) for e in
+                   sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES),
+                          key=lambda e: float(e["ts"]))]
+        if complete(kernels):
+            break
+        say(f"torch.profiler trace {attempt + 1} of this call holds {len(kernels)} kernels, not the call's; "
+            f"profiling it again")
+    return kernels
+
+
 def kernel_counts(fn, name: str):
     """(launches of kernels whose name holds ``name``, other kernels) in
     one call of ``fn`` (torch.profiler)."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [k for k, _ in device_kernels(fn)]
     return sum(name in k for k in names), sum(name not in k for k in names)
 
 
@@ -1446,14 +1989,9 @@ def k5_conv_times(pair, pixels: int, kind: str) -> None:
     the rate of the function it computes."""
     from eemflow_tpu_torch.tools.update_block_bound import update_block_convs
 
-    pair()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        pair()
-        torch.cuda.synchronize()
     convs = update_block_convs()
-    times = [e.device_time / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and "conv_tc" in e.name]
+    times = [ms for name, ms in device_kernels(pair, lambda ks: sum("conv_tc" in k for k, _ in ks) == len(convs))
+             if "conv_tc" in name]
     require(len(times) == len(convs), f"K5 pair launched {len(times)} convs, not {len(convs)}")
     parts = [f"{name} {ms:.4f} ({2 * k * cin * cout * pixels / ms / 1e9:.1f})"
              for (name, k, cin, cout), ms in zip(convs, times)]

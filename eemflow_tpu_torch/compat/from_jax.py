@@ -1,4 +1,4 @@
-"""Carry JAX EEMFlow and ERAFT params across to the port.
+"""Carry JAX EEMFlow, EEMFlow+ and ERAFT params across to the port.
 
 The inverse of ``torch_state_dict_to_flax`` with ``eemflow_alias``
 (``eemflow_tpu/compat/torch_loader.py:57-133``): a nested dict of numpy
@@ -95,4 +95,49 @@ def eraft_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 sd[f"{m}.{leaves[path[-1]]}"] = torch.from_numpy(np.ascontiguousarray(a))
                 if path[-1] == "mean":
                     sd[f"{m}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def _eemflow_plus_torch_path(path) -> str:
+    """A flax module path of the JAX EEMFlow+ → the port's (the inverse of
+    ``eemflow_plus_alias``): ``pyramid`` dropped, ``conv_1x1_{l}`` →
+    ``conv_1x1.{l}``, ``conv_last_0`` → ``conv_last.0``."""
+    out = []
+    for p in path:
+        if p == "pyramid":
+            continue
+        if p.startswith("conv_1x1_"):
+            out += ["conv_1x1", p[len("conv_1x1_"):]]
+        elif p == "conv_last_0":
+            out += ["conv_last", "0"]
+        else:
+            out.append(p)
+    return ".".join(out)
+
+
+def eemflow_plus_state_dict_from_jax(
+    params: Mapping, indices: Sequence[int] = INDEX_53
+) -> Dict[str, torch.Tensor]:
+    """JAX EEMFlow+ params → the port's ``state_dict``: HWIO conv kernels
+    → OIHW ``weight``, the CFP's ``Dense`` kernel [in, out] → ``Linear``
+    ``weight`` [out, in], biases as they are, and the ``index`` buffer."""
+    if "params" in params:
+        params = params["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        a = np.array(leaf, np.float32)
+        if path[-1] == "kernel":
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 2:
+                a = a.T
+            else:
+                raise ValueError(f"{'.'.join(path)}: unexpected kernel shape {a.shape}")
+            leaf_name = "weight"
+        elif path[-1] == "bias":
+            leaf_name = "bias"
+        else:
+            raise ValueError(f"unexpected EEMFlow+ param {'.'.join(path)}")
+        sd[f"{_eemflow_plus_torch_path(path[:-1])}.{leaf_name}"] = torch.from_numpy(np.ascontiguousarray(a))
+    sd["index"] = torch.tensor(list(indices), dtype=torch.long)
     return sd

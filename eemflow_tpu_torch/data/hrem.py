@@ -13,8 +13,9 @@ the meshflow (or, with ``full_res_flow``, the dense flow) is the label,
 ``valid`` is all ones, and the flip-only augmentor runs (``without_resize``,
 reference ``HREM.py:252``, with the label-flip bug fixed, see
 ``data.augment``).  Events become either host voxel grids (numpy, float64)
-or, in raw-event mode, padded [bucket, 4] float32 buffers that the model's
-device step voxelizes (``data.device_input``); in that mode the flips are
+or, in raw-event mode, padded [bucket, 4] float32 buffers (the C++
+packer, ``native.decode_pack_arrays``) that the model's device step
+voxelizes (``data.device_input``); in that mode the flips are
 drawn here, applied to the label, and handed on as ``flip_h``/``flip_v``
 for the device to flip the grids.  Arrays are NHWC per sample.
 
@@ -36,13 +37,8 @@ from eemflow_tpu_torch.data.device_input import EventOverflowCounter
 from eemflow_tpu_torch.data.meshflow import motion_propagate
 from eemflow_tpu_torch.events.io import read_compressed_events, read_flo
 from eemflow_tpu_torch.events.sequence import EventSequence
-from eemflow_tpu_torch.events.voxel import (
-    BufferPool,
-    choose_bucket,
-    events_to_voxel_grid_np,
-    make_ladder,
-    pad_events,
-)
+from eemflow_tpu_torch.events.voxel import BufferPool, choose_bucket, events_to_voxel_grid_np, make_ladder
+from eemflow_tpu_torch.native import decode_pack_arrays
 from eemflow_tpu_torch.ops.upsample import resize_bilinear
 
 HREM_SEQUENCES = ["indoor_fast", "indoor_slow", "outdoor_fast", "outdoor_slow"]
@@ -135,28 +131,18 @@ class HREMEventFlow:
         return grid.transpose(1, 2, 0)  # [H, W, bins]
 
     def _raw(self, path: str):
-        """Read + pad raw events for device-side voxelization: the numpy
-        packing path of ``eemflow_tpu/native`` (decode the columns the
-        reader's way, then ``EventSequence`` + ``pad_events``)."""
+        """Read + pad raw events for device-side voxelization: the port's
+        fused C++ decode+pack (``eemflow_tpu_torch.native``) into a pooled
+        buffer.  The columns are decompressed once: NpzFile members are not
+        cached, so a separate ``len(npz['t'])`` for the bucket ladder would
+        decode the int64 t column twice."""
         with np.load(path) as npz:
-            t = np.asarray(npz["t"], np.int64)
-            x = np.asarray(npz["x"], np.int16)
-            y = np.asarray(npz["y"], np.int16)
-            p = np.asarray(npz["p"], np.int8)
+            t = np.ascontiguousarray(npz["t"], np.int64)
+            x = np.ascontiguousarray(npz["x"], np.int16)
+            y = np.ascontiguousarray(npz["y"], np.int16)
+            p = np.ascontiguousarray(npz["p"], np.int8)
         bucket = choose_bucket(len(t), self.bucket_ladder)
-        out = self._pack_pool.get(bucket)
-        if len(t) == 0:
-            padded, n, dropped = pad_events(np.zeros((0, 4), np.float32), bucket, out)
-        else:
-            feats = np.stack(
-                [t.astype(np.float64) * 1e-9, x, y, 2.0 * p.astype(np.float64) - 1.0],
-                axis=1,
-            )
-            seq = EventSequence(
-                feats, height=0, width=0,
-                timestamp_multiplier=1e6, convert_to_relative=True,
-            )
-            padded, n, dropped = pad_events(seq.features, bucket, out)
+        padded, n, dropped = decode_pack_arrays(t, x, y, p, bucket, out=self._pack_pool.get(bucket))
         self.overflow.update(n + dropped, dropped)
         return padded, np.int32(n)
 

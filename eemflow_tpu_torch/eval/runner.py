@@ -7,7 +7,10 @@ the mean of the sequence means, with an optional per-sample CSV.  The
 forward of the next batch is queued on the device before the flows of the
 previous one are fetched, so host work (dataset IO, numpy metrics)
 overlaps device work.  ``preprocess`` (if given) runs first on the device
-— the device-voxelize path.
+— the device-voxelize path.  The dataset's arrays reach the card as
+pageable copies (``data.staging.Staging.upload``: copying them into pinned
+buffers first costs the host as much as it saves; ``PERF.md``), and the
+flow comes back through a pinned buffer.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from eemflow_tpu_torch.data.staging import Staging
 from eemflow_tpu_torch.eval.metrics import flow_error
 
 # sample keys a forward consumes (two volumes, or raw events to voxelize)
@@ -68,39 +72,38 @@ class Tester:
         self.save_path = save_path
         self.save_csv = save_csv
         self._preprocess = preprocess
+        self.staging = Staging(self.device)
 
     @staticmethod
     def _log(line: str) -> None:
         print(line, flush=True)
 
-    def _forward(self, arrays: Dict[str, np.ndarray]) -> torch.Tensor:
-        """Queue one forward over a batch of host arrays; returns the
-        device flow [B, H, W, 2] without waiting for it."""
-        batch = {
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-            for k, v in arrays.items()
-        }
+    def _forward(self, arrays: Dict[str, np.ndarray]):
+        """Queue one forward over a batch of host arrays and the copy of
+        its flow [B, H, W, 2] to the host; returns the copy's handle
+        (``.numpy()`` waits) without waiting for it."""
+        batch = {k: self.staging.upload(np.ascontiguousarray(v)) for k, v in arrays.items()}
         with torch.inference_mode():
             if self._preprocess is not None:
                 batch = self._preprocess(batch)
             _, preds = self.model(batch["event_volume_old"], batch["event_volume_new"])
-            return preds[-1].float()
+            return self.staging.fetch(preds[-1].float())
 
-    def _dispatch(self, sample) -> torch.Tensor:
+    def _dispatch(self, sample):
         return self._forward({
             k: np.asarray(sample[k])[None]
             for k in _INPUT_KEYS
             if k in sample and sample[k] is not None
         })
 
-    def _dispatch_many(self, samples) -> torch.Tensor:
+    def _dispatch_many(self, samples):
         """One batched forward over several samples: every op is
         per-sample, so results equal per-sample dispatch."""
         return self._forward(collate(samples))
 
     def run_sample(self, sample: Dict[str, np.ndarray]) -> np.ndarray:
         """Single sample dict → flow [H, W, 2]."""
-        return self._dispatch(sample)[0].cpu().numpy()
+        return self._dispatch(sample).numpy()[0]
 
     def test_sequence(
         self, dataset, stride: int = 1, max_samples: Optional[int] = None, batch_size: int = 1,
@@ -117,7 +120,7 @@ class Tester:
 
         def consume(samples, fut):
             nonlocal AEE_sum, pct1_sum, pct3_sum, iters
-            flows = fut.cpu().numpy()
+            flows = fut.numpy()
             for j, sample in enumerate(samples):
                 ev_img = sample.get("event_valid")
                 aee, p1, p3, _, _, _, _ = flow_error(

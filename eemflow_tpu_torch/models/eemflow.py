@@ -114,9 +114,10 @@ class Decoder(nn.Module):
 class EEMFlow(nn.Module):
     """Flagship model.  ``siamese_stack``: run both event frames through
     the pyramid and pools as one 2B batch (per-frame results identical;
-    fewer, larger launches) — the ``--fast`` serving mode.  ``fast_pyramid``
+    fewer, larger launches; the JAX package's ``--fast``).  ``fast_pyramid``
     (which wins over ``siamese_stack``) and ``fast_head``: the eval-only
-    fused modes of the module docstring."""
+    fused modes of the module docstring, the port's ``--fast``
+    (``models/registry.FAST_EVAL_KWARGS``)."""
 
     def __init__(
         self,

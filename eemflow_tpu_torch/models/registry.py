@@ -1,22 +1,32 @@
 """Model registry of the port (counterpart of
-``eemflow_tpu/models/registry.py:32-100``): ``eemflow`` and ``eraft``, so
-far."""
+``eemflow_tpu/models/registry.py:32-100``): ``eemflow``, ``eemflow_plus``
+and ``eraft``, so far."""
 
 from __future__ import annotations
 
 import inspect
 
 from eemflow_tpu_torch.models.eemflow import EEMFlow
+from eemflow_tpu_torch.models.eemflow_plus import EEMFlowPlus
 from eemflow_tpu_torch.models.eraft import ERAFT
 
-MODEL_REGISTRY = {"eemflow": EEMFlow, "eraft": ERAFT}
+MODEL_REGISTRY = {"eemflow": EEMFlow, "eemflow_plus": EEMFlowPlus, "eraft": ERAFT}
 
 # reference CLI spellings (train_EEMFlow_HREM.py:30-55) → registry names
 ALIASES = {"EEMFlow": "eemflow"}
 
-# parity-safe serving modes per family (same params, same math): EEMFlow's
-# siamese pyramid batch; none for ERAFT, as in the JAX registry
-FAST_EVAL_KWARGS = {"eemflow": {"siamese_stack": True}}
+# parity-safe serving modes per family (same params, the same function in
+# another summation order), the CLIs' --fast.  The JAX registry's choice
+# (siamese_stack) is a TPU verdict; the port's rests on the card.  EEMFlow's
+# 720x1280 B=1 forward (golden weights) on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, back to back / on the device (chip_smoke.py phase 4, "--fast
+# candidate" lines; the run is named beside these numbers in PERF.md §6):
+# standard 3.594 / 3.251 ms, siamese_stack 3.631 / 2.548, fast_head +
+# fast_pyramid (kernels K4 and K3) 1.416 / 1.236, all three 1.508 / 1.228;
+# the fused flow within 3e-8 of the standard one (mean end-point distance
+# 4e-9 px).  None for EEMFlow+ and ERAFT, as in JAX: their fused modes are
+# not faster on the card (EEMFlow+'s SIMT chains, PERF.md).
+FAST_EVAL_KWARGS = {"eemflow": {"fast_head": True, "fast_pyramid": True}}
 
 
 def _ctor(name: str):

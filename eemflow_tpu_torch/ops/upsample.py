@@ -1,6 +1,6 @@
-"""Bilinear resizing, EEMFlow's flow upsampler and RAFT's convex upsampler
-(counterpart of ``eemflow_tpu/ops/upsample.py:25-63, 84-109``), NHWC in
-and out.
+"""Bilinear resizing, EEMFlow's and EEMFlow+'s flow upsamplers and RAFT's
+convex upsampler (counterpart of ``eemflow_tpu/ops/upsample.py:25-81,
+84-109``), NHWC in and out.
 
 align_corners=False is torch ``F.interpolate``'s own convention
 (src = (dst+0.5)·in/out − 0.5, clamped at 0), which the JAX package
@@ -29,6 +29,25 @@ def upsample_flow_to(flow: torch.Tensor, size) -> torch.Tensor:
     """EEMFlow final upsampler: plain bilinear (align_corners=False), flow
     values NOT rescaled (reference ``EEMFlow.py:118-120``)."""
     return resize_bilinear(flow, size, align_corners=False)
+
+
+_RATES: dict = {}
+
+
+def upsample2d_flow_as(flow: torch.Tensor, target_hw, if_rate: bool = False) -> torch.Tensor:
+    """EEMFlow+'s upsampler (reference ``cdc_utils.py:80-103``): resize
+    (align_corners=True) to ``target_hw``, and with ``if_rate`` scale u by
+    the width ratio and v by the height ratio."""
+    h, w = target_hw
+    _, h_, w_, _ = flow.shape
+    res = resize_bilinear(flow, (h, w), align_corners=True)
+    if if_rate:
+        key = (w / w_, h / h_, res.dtype, res.device)
+        scale = _RATES.get(key)
+        if scale is None:  # made once: a fresh copy to the card each call costs the host
+            scale = _RATES[key] = torch.tensor(key[:2], dtype=res.dtype, device=res.device)
+        res = res * scale
+    return res
 
 
 def convex_upsample_flow(flow: torch.Tensor, mask: torch.Tensor, factor: int = 8) -> torch.Tensor:

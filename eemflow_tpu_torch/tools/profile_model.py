@@ -1,4 +1,4 @@
-"""Profile the port's eval step (EEMFlow or ERAFT) or EEMFlow's train step
+"""Profile the port's eval step (EEMFlow, EEMFlow+ or ERAFT) or EEMFlow's train step
 with ``torch.profiler`` (counterpart of ``tools/profile_model.py``): device
 time by kernel, the device's busy share over the profiled window (the
 union of its kernels' and copies' intervals in the exported trace over the
@@ -18,6 +18,8 @@ them).  Writes a Chrome trace to ``--logdir`` and prints one JSON line.
 Usage:
   python -m eemflow_tpu_torch.tools.profile_model --size 720 1280 -bs 1 [--fast] \
       [--fast_head] [--fast_pyramid] [--events 30000]
+  python -m eemflow_tpu_torch.tools.profile_model -model eemflow_plus --size 720 1280 -bs 1 \
+      [--fast_pyramid --fast_decoders --fast_sgu]
   python -m eemflow_tpu_torch.tools.profile_model -model eraft --size 720 1280 -bs 1 \
       [--fused_update | --fused_update_bf16] [--corr_fast]
   python -m eemflow_tpu_torch.tools.profile_model --train --size 720 1280 -bs 6 [--bf16]

@@ -5,14 +5,17 @@ Loads a released PyTorch ``.pth.tar`` and runs the per-sequence HREM
 protocol ({indoor,outdoor}×{fast,slow}, mean of per-sequence AEE) on the
 card, or on the CPU with ``--device cpu``.  ``--config`` names a JSON file
 whose top-level keys that are model constructor fields go to the model
-(``{"fused_update": true}`` runs ERAFT's update block as kernel K5).  A
-checkpoint's correlation ``index`` buffer is dropped for the model's own,
-as the JAX CLI does; one line says so when the two differed.
+(``{"fused_update": true}`` runs ERAFT's update block as kernel K5).  The
+checkpoint goes through ``compat.torch_loader.load_model_checkpoint``: a
+released ``.pth.tar`` or the port's own ``epoch_N.pt``, EEMFlow+'s dead
+keys dropped, the correlation ``index`` buffer the model's own.
 
 Usage:
   python -m eemflow_tpu_torch.tools.test_hrem -model eemflow -int dt1 \
       --data_root dataset/HREM --checkpoint EEMFlow_HREM_dt1.pth.tar \
-      [--device_voxelize] [--eval_batch 2] [--fast_head] [--fast_pyramid] [--device cpu]
+      [--device_voxelize] [--eval_batch 2] [--fast_head] [--fast_pyramid] [--fast] [--device cpu]
+  python -m eemflow_tpu_torch.tools.test_hrem -model eemflow_plus -int dt1 \
+      --checkpoint EEMFlow+_HREM_dt1.pth.tar [--fast_pyramid --fast_decoders --fast_sgu]
   python -m eemflow_tpu_torch.tools.test_hrem -model eraft -int dt1 \
       --checkpoint eraft.pth.tar --max_samples 1 [--config cfg.json] [--stride 2]
 """
@@ -25,7 +28,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
 from eemflow_tpu_torch.data.device_input import make_device_preprocess
 from eemflow_tpu_torch.data.hrem import HREM_SEQUENCES, HREMEventFlow
 from eemflow_tpu_torch.device import resolve_device
@@ -34,12 +37,17 @@ from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 from eemflow_tpu_torch.utils.config import load_config, model_kwargs_from_config
 
 
+# the fused eval modes a flag of the same name turns on
+FUSED_FLAGS = ("fast_head", "fast_pyramid", "fast_decoders", "fast_sgu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Evaluate on HREM (PyTorch port)")
     p.add_argument("-model", default="eemflow")
     p.add_argument("-int", dest="event_interval", default="dt1", choices=["dt1", "dt4"])
     p.add_argument("--data_root", default="dataset/HREM")
-    p.add_argument("--checkpoint", required=True, help="released .pth/.pth.tar checkpoint")
+    p.add_argument("--checkpoint", required=True,
+                   help="released .pth/.pth.tar checkpoint, or the port's own epoch_N.pt")
     p.add_argument("--save_dir", default="runs/hrem_eval")
     p.add_argument("--stride", type=int, default=1, help="evaluate every stride-th sample")
     p.add_argument("--max_samples", type=int, default=None,
@@ -58,8 +66,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="EEMFlow: the whole coarse stage as one kernel (K4; f32 "
                    "math, parity to fp noise — safe for checkpoint evals)")
     p.add_argument("--fast_pyramid", action="store_true",
-                   help="EEMFlow: each pyramid level's stride-1 convs + pool as one "
-                   "kernel (K3; f32 math, parity to fp noise)")
+                   help="EEMFlow, EEMFlow+: each pyramid level's stride-1 convs (+ pool) "
+                   "as one kernel (K3; f32 math, parity to fp noise)")
+    p.add_argument("--fast_decoders", action="store_true",
+                   help="EEMFlow+: each level's 7-conv decoder as one K3 chain (f32 math, "
+                   "parity to fp noise — safe for checkpoint evals)")
+    p.add_argument("--fast_sgu", action="store_true",
+                   help="EEMFlow+: the SGU's dense estimator as one K3 concat chain (f32 "
+                   "math, parity to fp noise)")
     p.add_argument("--fast", action="store_true",
                    help="every parity-safe serving mode of the family "
                    "(registry.fast_eval_kwargs)")
@@ -77,23 +91,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
 
     cfg = load_config(args.config) if args.config else {}
     model_kwargs = model_kwargs_from_config(args.model, cfg)
-    model_kwargs.update({k: True for k in ("fast_head", "fast_pyramid") if getattr(args, k)})
+    model_kwargs.update({k: True for k in FUSED_FLAGS if getattr(args, k)})
     if args.fast:
         model_kwargs.update(fast_eval_kwargs(args.model))
     model = get_eval_model(args.model, **model_kwargs)
-    if not args.checkpoint.endswith((".pth", ".pth.tar", ".pt")):
-        raise SystemExit("--checkpoint must be a PyTorch .pth/.pth.tar/.pt file")
-    sd = to_state_dict(load_torch_checkpoint(args.checkpoint))
-    own = model.state_dict().get("index")
-    if "index" in sd:
-        # as the JAX CLI: the checkpoint's index goes, the model keeps its own
-        index = sd.pop("index")
-        if own is not None and not torch.equal(index, own):
-            print(f"checkpoint correlation index ({index.numel()} entries) differs from the "
-                  f"model's corr_indices ({own.numel()}); using the model's", flush=True)
-    if own is not None:
-        sd["index"] = own
-    model.load_state_dict(sd)
+    try:
+        load_model_checkpoint(model, args.checkpoint, args.model, log=lambda m: print(m, flush=True))
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
 
     dataset = HREMEventFlow(
         args.data_root, dt=args.event_interval,

@@ -1,16 +1,19 @@
 """Time the eval forward of the port (counterpart of ``tools/time_eval.py``
-for ``-model eemflow`` and ``-model eraft``): the user-facing A/B between
-the standard and the fused modes.
+for ``-model eemflow``, ``eemflow_plus`` and ``eraft``): the user-facing
+A/B between the standard and the fused modes.
 
 On the card the forward is timed with CUDA events over ``--reps``
 back-to-back calls after a warm-up; on the CPU (``--device cpu``) with the
 host clock, and the result names the CPU.  The weights are random
-(timing does not depend on them).  Prints one line with ms per image and
+(timing does not depend on them) unless ``--checkpoint`` names a release
+or an ``epoch_N.pt`` (``compat.torch_loader.load_model_checkpoint``).  Prints one line with ms per image and
 images per second beside the device's name, and returns them.
 
 Usage:
   python -m eemflow_tpu_torch.tools.time_eval --size 720 1280 -bs 1 \\
       [--fast_head [--fast_head_impl plain]] [--fast_pyramid | --fast_pyramid_bf16] [--fast]
+  python -m eemflow_tpu_torch.tools.time_eval -model eemflow_plus --size 720 1280 -bs 1 \\
+      [--fast_pyramid --fast_decoders --fast_sgu [--fast_pyramid_bf16]]
   python -m eemflow_tpu_torch.tools.time_eval -model eraft --size 720 1280 -bs 1 \\
       [--fused_update | --fused_update_bf16] [--corr_fast]
 """
@@ -24,13 +27,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
 from eemflow_tpu_torch.device import resolve_device
 from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 
 
 def add_mode_flags(p: argparse.ArgumentParser) -> None:
     """The model and its eval modes, as the JAX tool spells them."""
-    p.add_argument("-model", default="eemflow", choices=["eemflow", "eraft"])
+    p.add_argument("-model", default="eemflow", choices=["eemflow", "eemflow_plus", "eraft"])
     p.add_argument("--fast_head", action="store_true",
                    help="the whole coarse stage as one kernel (K4; f32 math, parity to "
                    "fp noise)")
@@ -41,7 +45,12 @@ def add_mode_flags(p: argparse.ArgumentParser) -> None:
                    "math, parity to fp noise)")
     p.add_argument("--fast_pyramid_bf16", action="store_true",
                    help="the fused pyramid with bf16 conv operands (f32 accumulation; not "
-                   "for checkpoint-parity evaluation)")
+                   "for checkpoint-parity evaluation); EEMFlow+: every fused mode's operands")
+    p.add_argument("--fast_decoders", action="store_true",
+                   help="EEMFlow+: each decoder as one K3 chain (f32 math, parity to fp noise)")
+    p.add_argument("--fast_sgu", action="store_true",
+                   help="EEMFlow+: the SGU's dense estimator as one K3 concat chain (f32 math, "
+                   "parity to fp noise)")
     p.add_argument("--fast", action="store_true",
                    help="every parity-safe serving mode of the family (registry.fast_eval_kwargs)")
     p.add_argument("--corr_fast", action="store_true",
@@ -63,7 +72,10 @@ def mode_kwargs(args) -> dict:
     if args.fast_pyramid or args.fast_pyramid_bf16:
         extra["fast_pyramid"] = True
         if args.fast_pyramid_bf16:
-            extra["fast_pyramid_dtype"] = "bf16"
+            extra["fast_dtype" if args.model == "eemflow_plus" else "fast_pyramid_dtype"] = "bf16"
+    for flag in ("fast_decoders", "fast_sgu"):
+        if getattr(args, flag):
+            extra[flag] = True
     if args.corr_fast:
         extra["corr_fast"] = True
     if args.fused_update or args.fused_update_bf16:
@@ -81,6 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-bs", "--batch_size", type=int, default=2)
     p.add_argument("--bins", type=int, default=5)
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--checkpoint", default=None,
+                   help="optional .pth/.pth.tar release or epoch_N.pt (default: random weights)")
     add_mode_flags(p)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
@@ -93,7 +107,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     extra = mode_kwargs(args)
     torch.manual_seed(0)
-    model = get_eval_model(args.model, n_first_channels=args.bins, **extra).to(device)
+    model = get_eval_model(args.model, n_first_channels=args.bins, **extra)
+    if args.checkpoint:
+        load_model_checkpoint(model, args.checkpoint, args.model)
+    model.to(device)
     h, w = args.size
     rng = np.random.default_rng(0)
     x1, x2 = (

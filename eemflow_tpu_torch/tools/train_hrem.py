@@ -12,7 +12,9 @@ step each epoch (``-se N`` resumes from epoch N).  EEMFlow predicts at the
 them on the device (kernel K1, once a frame); mixed precision (``--bf16``
 or the config's ``mixed_precision``) runs the forward on bf16 copies of
 the float32 parameters (``train.trainer``).  The JAX CLI's ``--viz`` comes
-with the port's ``viz`` package.
+with the port's ``viz`` package.  EEMFlow+ evaluates and serves but does
+not train yet: the JAX CLI sets ``out_mesh_size`` for EEMFlow only, so what
+EEMFlow+ trains against needs its own check against JAX first.
 
 Usage:
   python -m eemflow_tpu_torch.tools.train_hrem -model eemflow -int dt1 \
@@ -76,8 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# registered models whose training is not ported yet, and the ROADMAP item
+NOT_TRAINED = {"eemflow_plus": "ROADMAP.md §1 item 2, EEMFlow+ training"}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     args = build_parser().parse_args(argv)
+    if args.model in NOT_TRAINED:
+        raise SystemExit(f"-model {args.model}: training is not ported yet ({NOT_TRAINED[args.model]})")
     device = resolve_device(args.device)
     # full float32 convolutions and matmuls (cuDNN would otherwise run float32
     # convolutions in TF32)

@@ -104,8 +104,8 @@ def test_from_jax_inverts_the_jax_converter(golden_arrays):
 
 
 def test_registry():
-    assert fast_eval_kwargs("eemflow") == {"siamese_stack": True}
-    assert fast_eval_kwargs("EEMFlow") == {"siamese_stack": True}
+    assert fast_eval_kwargs("eemflow") == {"fast_head": True, "fast_pyramid": True}
+    assert fast_eval_kwargs("EEMFlow") == {"fast_head": True, "fast_pyramid": True}
     assert not get_eval_model("EEMFlow").training
     assert get_model("eemflow", groups=1).decoder_1.groups == 1
     assert get_eval_model("eemflow", fast_head=True, fast_pyramid=True).fast_pyramid

@@ -1,6 +1,7 @@
-"""Kernels of the port against their plain twins on the card, K2's
-backward, the eval-only kernels' refusal under grad, and ERAFT on the card
-against the CPU.  Marked ``gpu``: they skip where no CUDA device is
+"""Kernels of the port against their plain twins on the card (EEMFlow+'s
+K3 chains among them), K2's backward, the eval-only kernels' refusal under
+grad, ERAFT and EEMFlow+ on the card against the CPU, and the serving CLI
+on the card against the CPU.  Marked ``gpu``: they skip where no CUDA device is
 present.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports it) run them with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``."""
@@ -751,3 +752,115 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
     for name, g in g_cpu.items():
         assert float((g_gpu[name] - g).abs().max()) <= 1e-3 * float(g.abs().max()), name
+
+
+def _he_chain(rng, cin, widths, concat, device):
+    ws, bs = [], []
+    for f, cat in zip(widths, concat):
+        w = rng.standard_normal((f, cin, 3, 3)) * np.sqrt(2.0 / (9 * cin))
+        ws.append(torch.from_numpy(w.astype(np.float32)).to(device))
+        bs.append(torch.from_numpy((rng.standard_normal(f) * 0.1).astype(np.float32)).to(device))
+        cin = f + (cin if cat else 0)
+    return ws, bs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("chain", ["sgu", "decoder"])
+def test_eemflow_plus_k3_chains_match_plain(cuda, chain, dtype):
+    """EEMFlow+'s K3 chains at a 720x1280 level (96x160): the SGU's concat
+    chain and a decoder's dense chain, on the SIMT kernel, against the plain
+    version at He-scaled random weights; K3_TOL of chip_smoke.py."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(21)
+    if chain == "sgu":
+        cin, widths, concat = 64, (32, 32, 32, 16, 8, 3), (True,) * 5 + (False,)
+    else:
+        cin, widths, concat = 87, (96, 96, 96, 96, 64, 32, 2), (False,) * 7
+    relus = (True,) * (len(widths) - 1) + (False,)
+    x = torch.from_numpy(rng.standard_normal((1, cin, 96, 160)).astype(np.float32)).to(cuda)
+    ws, bs = _he_chain(rng, cin, widths, concat, cuda)
+    before = launch_counts["fused_convs_pool_simt"]
+    got, _ = k3.fused_convs(x, ws, bs, None, dtype, True, relus, concat)
+    assert launch_counts["fused_convs_pool_simt"] == before + 1
+    ref, _ = k3.plain(x, ws, bs, None, dtype, True, relus, concat)
+    torch.cuda.synchronize()
+    tol = (2e-5 if dtype == torch.float32 else 5e-3) * max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= tol
+
+
+def test_eemflow_plus_on_card_matches_cpu(cuda):
+    """EEMFlow+ (golden weights) at 128x192, B=2: the card's standard and
+    fused forwards against the CPU's standard forward, 1e-5 of the largest
+    flow (float32 in other summation orders through five levels of warp
+    feedback); K2 five launches a forward, K3's SIMT kernel under the
+    fused modes."""
+    import os
+
+    from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eemflow_plus_hrem_golden.pth.tar")
+    rng = np.random.default_rng(8)
+    ev = [torch.from_numpy(rng.standard_normal((2, 128, 192, 5)).astype(np.float32)) for _ in range(2)]
+    cpu = get_eval_model("eemflow_plus")
+    load_model_checkpoint(cpu, ckpt, "eemflow_plus")
+    with torch.inference_mode():
+        ref = cpu(*ev)[1][-1]
+    tol = 1e-5 * max(1.0, float(ref.abs().max()))
+    for kw in ({}, dict(fast_pyramid=True, fast_decoders=True, fast_sgu=True)):
+        model = get_eval_model("eemflow_plus", **kw)
+        load_model_checkpoint(model, ckpt, "eemflow_plus")
+        model.to(cuda)
+        before = dict(launch_counts)
+        with torch.inference_mode():
+            got = model(*(e.to(cuda) for e in ev))[1][-1]
+        delta = {k: launch_counts[k] - before[k] for k in launch_counts}
+        assert delta["local_corr"] == 5
+        assert (delta["fused_convs_pool_simt"] > 0) == bool(kw)
+        assert float((got.cpu() - ref).abs().max()) <= tol, kw
+
+
+@pytest.mark.parametrize(
+    "extra,k1_calls",
+    [((), 6), (("--stream",), 4), (("--stream", "--chunk", "3"), 4), (("--host_voxelize", "--stream", "--chunk", "3"), 0)],
+    ids=["pair", "stream", "stream_chunk3", "host_voxelize_stream_chunk3"],
+)
+def test_serve_on_card_matches_cpu(cuda, tmp_path, extra, k1_calls):
+    """The serving CLI on the card (packer, pinned staging, K1, K2) against
+    the same run on the CPU, 1e-4 on every .flo; K1 once a frame in stream
+    steady state (after one prime), once a frame in pair mode, never with
+    host voxelize; a chunk of three frames, whose pinned buffers are all
+    filled before the first upload, waits for none."""
+    import os
+
+    from eemflow_tpu_torch.events.io import read_flo
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.tools.serve import main as serve
+
+    rng = np.random.default_rng(23)
+    h, w = 128, 192
+    wins = [dict(x=rng.integers(0, w, 5000).astype(np.int32), y=rng.integers(0, h, 5000).astype(np.int32),
+                 t=np.sort(rng.integers(0, 10**9, 5000)).astype(np.int64), p=rng.integers(0, 2, 5000).astype(np.int8))
+            for _ in range(4)]
+    root = os.path.join(str(tmp_path), "data")
+    for i in range(3):
+        d = os.path.join(root, f"{i:05d}")
+        os.makedirs(d)
+        np.savez(os.path.join(d, "events1.npz"), **wins[i])
+        np.savez(os.path.join(d, "events2.npz"), **wins[i + 1])
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eemflow_hrem_golden.pth.tar")
+    flows = {}
+    for dev in ("cpu", "cuda"):
+        out = os.path.join(str(tmp_path), dev)
+        before = launch_counts["voxel_scatter"]
+        res = serve(["--checkpoint", ckpt, "--data_root", root, "--size", str(h), str(w), "--bucket_size", "8192",
+                     "--warmup", "0", "--out_dir", out, "--device", dev, *extra])
+        calls = launch_counts["voxel_scatter"] - before
+        assert res["frames"] == 3 and res["packer"].startswith("native")
+        flows[dev] = {f: read_flo(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+    assert calls == k1_calls
+    for name, f in flows["cpu"].items():
+        assert float(np.abs(flows["cuda"][name] - f).max()) <= 1e-4, name
