@@ -24,11 +24,12 @@ where it stopped:
      backward, one level (``LocalCorr``) and three in one launch
      (``LocalCorrLevels``, float32 and bf16); K3 fused conv chain + pool at
      the three 720×1280 pyramid levels for B=1 and 2, in float32 and in
-     bf16 (the tensor-core kernel), on a ragged NHWC view, and on a small
-     concat chain (its SIMT version); K3 on EEMFlow+'s own chains at their
-     720×1280 level shapes, float32 and bf16: the SGU's concat chain
-     (levels 5..2) and the decoders' dense chains (levels 6..2) on the SIMT
-     kernel, the fast pyramid's three chains on the tensor cores; K4 coarse head at the three 12×20
+     bf16, on a ragged NHWC view, and on a small ragged concat chain; K3 on
+     EEMFlow+'s own chains at their 720×1280 level shapes, float32 and
+     bf16: the SGU's concat chain (levels 5..2), the decoders' chains with
+     their convs 2-4 grouped and shuffled (levels 6..2), each in the two
+     launches its plan gives, and the fast pyramid's three chains; K4
+     coarse head at the three 12×20
      levels for B=1 and 2, groups 5 and 1, at both cluster sizes, and at an
      8×15 grid and a grid that takes the device-memory scratch; K5 update
      block, both entry points, at ERAFT's 92×160 and 64×120 grids and an
@@ -47,8 +48,9 @@ where it stopped:
      the agreement of the paths, and small forwards on the card against
      the same forwards on the CPU; EEMFlow+ (golden checkpoint, one
      sample) on the standard path and with ``--fast_pyramid
-     --fast_decoders --fast_sgu`` (K2 five launches a forward, K3's SIMT
-     kernel 9 and its tensor-core one 6), its golden AEE and a 96×128
+     --fast_decoders --fast_sgu`` (K2 five launches a forward, K3 the
+     pyramid's 6 and the SGU's and the decoders' 9 chains in the launches
+     their plans cut them into), its golden AEE and a 96×128
      forward on the card against the CPU;
   3. (serve) the serving CLI on a consecutive synthetic stream at 720×1280
      (8 frames, 30,000 events a window) with the golden EEMFlow checkpoint
@@ -87,10 +89,16 @@ where it stopped:
      whole device-voxelize eval sample; the ERAFT forward at 720×1280 and
      512×960, B=1, on the module path and with ``fused_update``; the
      ``--fast`` candidates for EEMFlow (``siamese_stack``, ``fast_head`` +
-     ``fast_pyramid``, all three); EEMFlow+'s 9 SIMT K3 launches of one
-     fused 720×1280 forward (device, wrapper, bound, plain version, the
-     standard modules) and its standard and fused forwards (back to back,
-     and the device's busy share of a profiled run); the serving CLI at B=1
+     ``fast_pyramid``, all three); K3 on EEMFlow+'s 9 chains of one fused
+     720×1280 forward (device after an L2 flush and warm, wrapper, float32
+     and bf16, the bound in the tensor cores' unit beside the SIMT figure,
+     each chain's plan and its instances' registers, the plain versions,
+     the standard modules), the level-2 chains at the plan's cut (one conv
+     a launch) and at the fewest launches that fit, one launch of K3 at every tile
+     and split its wrapper picks among (beside the pick's prediction), the
+     ``--fast`` candidates for EEMFlow+ (back to back), and its standard and
+     fused forwards (back to back, and the device's busy share of a profiled
+     run); the serving CLI at B=1
      and B=2 in each mode (wall fps, host decode and dispatch ms a frame,
      the device's busy share of the timed window); one
      720×1280 B=6 train step (device voxelize) in bf16 and float32, back to
@@ -103,8 +111,8 @@ of every ported kernel (``ms`` is device time; for K1 ``voxel_scatter`` at
 the three levels of a B=1 forward, float32, ``bf16_*`` on bf16 operands
 (``_b6`` at B=6); for K3 and K4 with the L2 cache flushed before each call,
 as a forward leaves their weights, and ``warm_ms`` without the flush; for
-K3's SIMT row (``fused_convs_pool_simt``) the 9 launches of one EEMFlow+
-fused forward, after an L2 flush; for
+K3 on EEMFlow+'s chains (``fused_convs_pool_plus_chains``) the launches
+of its 9 chains in one fused forward, after an L2 flush; for
 K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
 the time per wrapper call back to back; ``standard_ms`` the device time of
 the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
@@ -185,19 +193,20 @@ ERAFT_BF16_TOL = 0.05
 # summation orders carried through five levels of warp feedback
 PLUS_TOL = 1e-5
 # EEMFlow+'s K3 chains at 720x1280 (padded 768x1280): the SGU's concat chain
-# at levels 5..2, the decoders' dense chains at levels 6..2 (SIMT), and the
-# fast pyramid's three chains (tensor cores): (label, C, H, W, widths,
-# concat, relus, pool)
-_SGU = ((32, 32, 32, 16, 8, 3), (True,) * 5 + (False,), (True,) * 5 + (False,))
-_DEC = ((96, 96, 96, 96, 64, 32, 2), (False,) * 7, (True,) * 6 + (False,))
+# at levels 5..2, the decoders' chains at levels 6..2 (convs 2-4 grouped by
+# 3 and shuffled), and the fast pyramid's three chains: (label, C, H, W,
+# widths, concat, relus, groups (= shuffle), pool)
+_G = (1, 3, 3, 3, 1, 1, 1)
+_SGU = ((32, 32, 32, 16, 8, 3), (True,) * 5 + (False,), (True,) * 5 + (False,), (1,) * 6)
+_DEC = ((96, 96, 96, 96, 64, 32, 2), (False,) * 7, (True,) * 6 + (False,), _G)
 PLUS_CHAINS = (
     tuple((f"SGU level {l}", 64, h, w, *_SGU, None) for l, (h, w) in
           zip((5, 4, 3, 2), ((24, 40), (48, 80), (96, 160), (192, 320))))
     + tuple((f"decoder level {l}", 87, h, w, *_DEC, None) for l, (h, w) in
             zip((6, 5, 4, 3, 2), ((12, 20), (24, 40), (48, 80), (96, 160), (192, 320))))
-    + (("pyramid level 1", 16, 384, 640, (16,), (False,), (True,), None),
-       ("pyramid level 2", 32, 192, 320, (32, 32), (False,) * 2, (True,) * 2, None),
-       ("pyramid level 3", 64, 96, 160, (64, 64), (False,) * 2, (True,) * 2, 2))
+    + (("pyramid level 1", 16, 384, 640, (16,), (False,), (True,), (1,), None),
+       ("pyramid level 2", 32, 192, 320, (32, 32), (False,) * 2, (True,) * 2, (1,) * 2, None),
+       ("pyramid level 3", 64, 96, 160, (64, 64), (False,) * 2, (True,) * 2, (1,) * 2, 2))
 )
 # serving: a consecutive synthetic stream at 720x1280, 30,000 events a frame
 SERVE_FRAMES = 8
@@ -518,57 +527,88 @@ def phase_parity(device: torch.device) -> dict:
     k2_err = max(k2_err, levels_err)
     phase_parity_k2_backward(device, rng)
     k3_err = phase_parity_k3(device, rng)
-    simt_err, tc_err = phase_parity_k3_plus(device, rng)
+    plus_err, tc_err = phase_parity_k3_plus(device, rng)
     k4_err = phase_parity_k4(device, rng)
     k5_err = phase_parity_k5(device, rng)
     return {"voxel_scatter": k1_err, "voxelize": voxelize_err, "local_corr": k2_err, "local_corr_bf16": k2_bf16_err,
-            "fused_convs_pool": max(k3_err, tc_err), "fused_convs_pool_simt": simt_err, "coarse_head": k4_err,
+            "fused_convs_pool": max(k3_err, tc_err), "fused_convs_pool_plus_chains": plus_err, "coarse_head": k4_err,
             "update_block": k5_err}
 
 
 def phase_parity_k3_plus(device: torch.device, rng):
     """K3 on EEMFlow+'s own chains at their 720x1280 level shapes, B=1,
     He-scaled random weights, float32 and bf16: the SGU's concat chain and
-    the decoders' dense chains on the SIMT kernel (neither is
-    ``tc_eligible``), the fast pyramid's chains on the tensor cores; each
-    against the plain version.  Returns the largest float32 differences
-    (SIMT, tensor cores)."""
+    the decoders' chains (convs 2-4 grouped and shuffled), each in the
+    launches its plan gives, and the fast pyramid's chains; each against
+    the plain version.  Returns the largest float32 differences (EEMFlow+'s
+    9 chains, the pyramid's)."""
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.kernels import launch_counts
     from eemflow_tpu_torch.ops.fused_convs import chain_channels
 
-    worst = {"simt": 0.0, "tc": 0.0}
-    for label, cin, h, w, widths, concat, relus, pool in PLUS_CHAINS:
+    worst = {"plus": 0.0, "pyramid": 0.0}
+    for label, cin, h, w, widths, concat, relus, groups, pool in PLUS_CHAINS:
         x = torch.from_numpy(rng.standard_normal((1, cin, h, w)).astype(np.float32)).to(device)
         ws, bs = [], []
         c = cin
-        for f, cat in zip(widths, concat):
-            w_, b_ = conv_params(rng, (c,), (f,), device)
+        for f, cat, g in zip(widths, concat, groups):
+            w_, b_ = conv_params(rng, (c // g,), (f,), device)
             ws += w_
             bs += b_
             c = f + (c if cat else 0)
-        chain = chain_channels(cin, ws, concat)
-        route = "tc" if k3.tc_eligible(chain, concat) else "simt"
+        chain = chain_channels(cin, ws, concat, groups)
+        kind = "pyramid" if label.startswith("pyramid") else "plus"
         for dtype in (torch.float32, torch.bfloat16):
-            counter = "fused_convs_pool" if route == "tc" else "fused_convs_pool_simt"
-            before = launch_counts[counter]
-            got = k3.fused_convs(x, ws, bs, pool, dtype, True, relus, concat)
-            require(launch_counts[counter] == before + 1, f"K3 EEMFlow+ {label} did not take one {route} launch")
-            ref = k3.plain(x, ws, bs, pool, dtype, True, relus, concat)
+            packed = k3.pack_chain(ws, bs, dtype == torch.bfloat16, device, pool, concat, groups, groups, relus)
+            before = launch_counts["fused_convs_pool"]
+            got = k3.fused_convs(x, ws, bs, pool, dtype, True, relus, concat, packed, groups, groups)
+            n = launch_counts["fused_convs_pool"] - before
+            require(n == len(packed.launches) and (n == 1) == (kind == "pyramid"),
+                    f"K3 EEMFlow+ {label} took {n} launches, not its plan's (the pyramid's one, the others more)")
+            ref = k3.plain(x, ws, bs, pool, dtype, True, relus, concat, groups, groups)
             torch.cuda.synchronize()
             tol = K3_TOL[str(dtype).split(".")[1]]
+            plan = ", ".join(f"convs {L.lo + 1}-{L.hi} tile {L.plan['tile'][0]}x{L.plan['tile'][1]} "
+                             f"{L.plan['smem_bytes']} B" for L in packed.launches)
+            if dtype == torch.bfloat16 and kind == "plus":
+                # how far the kernel and the plain version each lie from the
+                # chain with exact sums (float64) of the same bf16 operands
+                ex = exact_bf16_chain(x, ws, bs, relus, concat, groups)
+                scale = max(1.0, float(ex.abs().max()))
+                say(f"K3 EEMFlow+ {label} bf16 against exact sums: kernel {float((got[0] - ex).abs().max()) / scale:.3e}, "
+                    f"plain version {float((ref[0] - ex).abs().max()) / scale:.3e} (of max(1, |exact|))")
             for what, g, r in zip(("full", "pooled"), got, ref):
                 if g is None:
                     continue
                 err, scale = rel_err(g, r)
                 if dtype == torch.float32:
-                    worst[route] = max(worst[route], err)
-                say(f"K3 EEMFlow+ {label} [1,{cin},{h},{w}] channels {chain} ({route} kernel, "
-                    f"tc_eligible {route == 'tc'}) {str(dtype)[6:]}: {what} max|Δ| {err:.3e} "
+                    worst[kind] = max(worst[kind], err)
+                say(f"K3 EEMFlow+ {label} [1,{cin},{h},{w}] channels {chain} groups {list(groups)} "
+                    f"{str(dtype)[6:]} ({n} launches: {plan}): {what} max|Δ| {err:.3e} "
                     f"(tolerance {tol:g}·{scale:.2f} = {tol * scale:.3e})")
                 require(bool(torch.isfinite(g).all()) and err <= tol * scale,
                         f"K3 disagrees with its plain version on EEMFlow+'s {label} ({what}, {dtype})")
-    return worst["simt"], worst["tc"]
+    return worst["plus"], worst["pyramid"]
+
+
+def exact_bf16_chain(x, ws, bs, relus, concat, groups):
+    """A conv chain with bf16-rounded operands whose sums are exact
+    (float64) and rounded once to float32 at each conv: the result that
+    every float32 summation order approximates."""
+    import torch.nn.functional as F
+
+    from eemflow_tpu_torch.models.layers import channel_shuffle
+
+    y = x
+    for w, b, relu, cat, g in zip(ws, bs, relus, concat, groups):
+        out = F.conv2d(y.to(torch.bfloat16).double(), w.to(torch.bfloat16).double(), b.double(), padding=1,
+                       groups=g).float()
+        if relu:
+            out = F.leaky_relu(out, 0.1)
+        if g > 1:
+            out = channel_shuffle(out, g)
+        y = torch.cat([out, y], dim=1) if cat else out
+    return y
 
 
 def phase_parity_k1(device: torch.device, rng):
@@ -810,20 +850,23 @@ def phase_parity_k3(device: torch.device, rng) -> float:
             f"(tolerance {tol:g}·{scale:.2f})")
         require(err <= tol * scale, f"K3 disagrees with its twin on the ragged NHWC view ({dtype})")
     # a concat chain (the EEMFlow+ FlowEstimatorDense pattern), no pool,
-    # ragged: the SIMT version
+    # ragged: its widths no multiple of 8, padded inside each tap
     x = torch.from_numpy(rng.standard_normal((2, 16, 37, 45)).astype(np.float32)).to(device)
     ws, bs = conv_params(rng, (16, 24, 32), (8, 8, 3), device)
     flags = dict(relus=(True, True, False), concat=(True, True, False))
-    before = launch_counts["fused_convs_pool_simt"]
-    got, _ = k3.fused_convs(x, ws, bs, None, **flags)
-    require(launch_counts["fused_convs_pool_simt"] == before + 1, "the concat chain did not run on K3's SIMT version")
-    ref, _ = k3.plain(x, ws, bs, None, **flags)
-    torch.cuda.synchronize()
-    err, scale = rel_err(got, ref)
-    worst = max(worst, err)
-    say(f"K3 concat chain [2,16,37,45] convs [8,8,3] no pool (SIMT version): max|Δ| {err:.3e} "
-        f"(tolerance {K3_TOL['float32']:g}·{scale:.2f})")
-    require(err <= K3_TOL["float32"] * scale, "K3 disagrees with its twin on the concat chain")
+    for dtype in (torch.float32, torch.bfloat16):
+        before = launch_counts["fused_convs_pool"]
+        got, _ = k3.fused_convs(x, ws, bs, None, dtype, **flags)
+        require(launch_counts["fused_convs_pool"] == before + 1, "the concat chain did not take one K3 launch")
+        ref, _ = k3.plain(x, ws, bs, None, dtype, **flags)
+        torch.cuda.synchronize()
+        err, scale = rel_err(got, ref)
+        tol = K3_TOL[str(dtype).split(".")[1]]
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        say(f"K3 concat chain [2,16,37,45] convs [8,8,3] no pool {str(dtype)[6:]}: max|Δ| {err:.3e} "
+            f"(tolerance {tol:g}·{scale:.2f})")
+        require(err <= tol * scale, f"K3 disagrees with its twin on the concat chain ({dtype})")
     return worst
 
 
@@ -934,7 +977,6 @@ def phase_end_to_end(device: torch.device, tmp: str) -> dict:
     # two samples, each one forward of two frames: K3 three times a frame, K4 once a forward
     require(launches["fused_convs_pool"] == 12 and launches["coarse_head"] == 2,
             "the fused path did not run K3 three times a frame and K4 once a forward")
-    require(counts["fused_convs_pool_simt"] == 0, "the fused path ran K3's SIMT version")
     host = aee["host voxelize"]
     say(f"golden AEE {golden['aee']:.7f}; host path |Δ| {abs(host - golden['aee']):.3e}, "
         f"fused path |Δ| {abs(aee[paths[1][1][0][0]] - golden['aee']):.3e} (tolerance {GOLDEN_TOL:g})")
@@ -1044,9 +1086,9 @@ def forward_flows(model, ev1, ev2):
 def phase_end_to_end_plus(device: torch.device, tmp: str) -> dict:
     """EEMFlow+ through the eval CLI on the golden sample at 720x1280: the
     standard path, then ``--fast_pyramid --fast_decoders --fast_sgu`` (K3's
-    tensor-core kernel for the pyramid, its SIMT kernel for the decoders
-    and the SGU), each with its own launch counts; K2 five launches a
-    forward.  Then a 96x128 forward on the card against the CPU."""
+    launches for the pyramid, the SGU and the decoders), each with its own
+    launch counts; K2 five launches a forward.  Then a 96x128 forward on
+    the card against the CPU."""
     from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
     from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
     from eemflow_tpu_torch.models.registry import get_eval_model
@@ -1078,9 +1120,12 @@ def phase_end_to_end_plus(device: torch.device, tmp: str) -> dict:
     # one sample: one forward of two frames
     require(counts["standard"]["local_corr"] == 5 and counts["fused"]["local_corr"] == 5,
             "EEMFlow+ did not take five K2 launches a forward")
-    require(counts["standard"]["fused_convs_pool_simt"] == 0 and counts["fused"]["fused_convs_pool_simt"] == 9,
-            "EEMFlow+'s fused forward did not run K3's SIMT kernel 9 times (4 SGU levels, 5 decoders)")
-    require(counts["fused"]["fused_convs_pool"] == 6, "EEMFlow+'s fused pyramid did not take 6 tensor-core K3 launches")
+    # the pyramid's 6 chains in one launch each, the 9 SGU and decoder chains
+    # in the launches of their plans
+    chains = plus_chain_launches()
+    require(counts["standard"]["fused_convs_pool"] == 0 and counts["fused"]["fused_convs_pool"] == 6 + chains,
+            f"EEMFlow+'s fused forward did not take 6 + {chains} K3 launches (the pyramid's 6 chains; the SGU "
+            "at levels 5..2 and the decoders at 6..2 as their plans cut them)")
 
     rng = np.random.default_rng(31)
     ev1, ev2 = (torch.from_numpy(rng.standard_normal((1, 96, 128, BINS)).astype(np.float32)) for _ in range(2))
@@ -1097,7 +1142,7 @@ def phase_end_to_end_plus(device: torch.device, tmp: str) -> dict:
             f"{PLUS_TOL:g}·{scale:.2f})")
         require(bool(torch.isfinite(got).all()) and err <= PLUS_TOL * scale,
                 f"EEMFlow+ {label} forward on the card disagrees with the CPU")
-    return {"fused_convs_pool_simt": counts["fused"]["fused_convs_pool_simt"]}
+    return {"fused_convs_pool_plus_chains": chains}
 
 
 def make_serve_stream(base: str, n_frames: int = SERVE_FRAMES, n_events: int = 30000, seed: int = 41) -> str:
@@ -1508,10 +1553,10 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> t
     k5_row = times_k5(device, errs, launches)
     times_eraft(device)
     times_fast_candidates(device, sd, x1, x2)
-    simt_row = times_plus(device, tmp, errs, launches)
+    plus_row = times_plus(device, tmp, errs, launches)
     times_serve(device, tmp)
     train = times_train(device, tmp)
-    return [k1_row, k2_row, k3_row, simt_row, k4_row, k5_row], train
+    return [k1_row, k2_row, k3_row, plus_row, k4_row, k5_row], train
 
 
 # the --fast candidates timed on the card (models/registry.FAST_EVAL_KWARGS
@@ -1548,109 +1593,262 @@ def times_fast_candidates(device, sd, x1, x2) -> None:
     say(f"--fast maps eemflow to {fast_eval_kwargs('eemflow')} (models/registry.FAST_EVAL_KWARGS)")
 
 
+def plus_chain_launches(bf16: bool = False) -> int:
+    """K3 launches of EEMFlow+'s 9 SGU and decoder chains in one fused
+    720x1280 forward, as their plans cut them."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+
+    sgu = k3.chain_spec(64, _SGU[0], _SGU[1])
+    dec = k3.chain_spec(87, _DEC[0], None, _G, _G)
+    return 4 * len(k3.plan_chain(sgu, None, bf16)) + 5 * len(k3.plan_chain(dec, None, bf16))
+
+
+# EEMFlow+'s --fast candidates (models/registry.FAST_EVAL_KWARGS maps
+# eemflow_plus to the fastest parity-safe one that beats the standard
+# forward back to back, else to none)
+PLUS_FAST_CANDIDATES = (
+    ("standard", {}),
+    ("siamese_stack", {"siamese_stack": True}),
+    ("fast_pyramid", {"fast_pyramid": True}),
+    ("fast_sgu + fast_decoders", {"fast_sgu": True, "fast_decoders": True}),
+    ("fast_sgu + fast_decoders + siamese_stack", {"fast_sgu": True, "fast_decoders": True, "siamese_stack": True}),
+    ("all three fused", {"fast_pyramid": True, "fast_sgu": True, "fast_decoders": True}),
+)
+
+
 def times_plus(device, tmp: str, errs: dict, launches: dict) -> dict:
-    """EEMFlow+ at 720x1280 B=1 (golden weights): the nine launches of K3's
-    SIMT kernel in one fused forward (4 SGU levels, 5 decoders), on the
-    forward's own inputs, on the device (queued, after an L2 flush) and per
-    wrapper call back to back, beside their bound (the function's float32
-    FLOP at the SIMT peak, or its bytes), the plain versions and the
-    standard modules for the same work (cuDNN: the SGU's dense estimator,
-    the decoders); then the standard and fused forwards back to back and
-    the device's busy time and share of one profiled run of each."""
+    """EEMFlow+ at 720x1280 B=1 (golden weights): K3 on the 9 SGU and
+    decoder chains of one fused forward, on the forward's own inputs, in
+    float32 and bf16: on the device (queued, after an L2 flush, and warm)
+    and per wrapper call back to back, beside their bound in the tensor
+    cores' unit (float32: the three TF32 products of the split at the TF32
+    peak; bf16 at the bf16 peak; or the bytes) and the SIMT figure, the
+    plain versions and the standard modules for the same work (cuDNN: the
+    SGU's dense estimator, the decoders); each chain's plan and device
+    time, the instances' registers, spills and CTAs an SM, and the level-2
+    chains at other cuts than the plan's; then the ``--fast`` candidates
+    for EEMFlow+, and the standard and fused forwards back to back and the
+    device's busy time and share of one profiled run of each."""
     import eemflow_tpu_torch.models.eemflow_plus as plus_module
     from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
     from eemflow_tpu_torch.kernels import fused_convs as k3
-    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
     from eemflow_tpu_torch.ops.fused_convs import chain_channels
 
+    fused_kw = dict(fast_pyramid=True, fast_decoders=True, fast_sgu=True)
     models = {}
-    for label, kw in (("standard", {}), ("fused", dict(fast_pyramid=True, fast_decoders=True, fast_sgu=True))):
+    for label, kw in (("standard", {}), ("fused", fused_kw), ("fused bf16", dict(fused_kw, fast_dtype="bf16"))):
         models[label] = get_eval_model("eemflow_plus", **kw)
         load_model_checkpoint(models[label], PLUS_CKPT, "eemflow_plus")
         models[label].to(device)
     x1, x2 = (torch.randn(1, H, W, BINS, device=device) for _ in range(2))
-    # the SIMT launches of one fused forward, with their inputs
-    calls = []
+    # the SGU and decoder chains of one fused forward (the pyramid's have at
+    # most 2 convs), with their inputs, in each operand mode
     real = plus_module.fused_convs
+    calls = {}
+    for label in ("fused", "fused bf16"):
+        rec = calls[label] = []
 
-    def recording(x, ws, bs, pool, dtype, emit_full, relus=None, concat=None, packed=None):
-        if packed is not None and packed[0][2] == "simt":
-            calls.append((x, ws, bs, pool, dtype, emit_full, relus, concat or (False,) * len(ws), packed))
-        return real(x, ws, bs, pool, dtype, emit_full, relus, concat, packed)
+        def recording(x, ws, bs, pool, dtype=torch.float32, emit_full=True, relus=None, concat=None,
+                      packed=None, groups=None, shuffle=None, rec=rec):
+            if len(ws) > 2:
+                rec.append((x, ws, bs, pool, dtype, emit_full, relus, concat, packed, groups, shuffle))
+            return real(x, ws, bs, pool, dtype, emit_full, relus, concat, packed, groups, shuffle)
 
-    plus_module.fused_convs = recording
-    try:
-        forward_flows(models["fused"], x1, x2)
-    finally:
-        plus_module.fused_convs = real
-    require(len(calls) == 9, f"one fused EEMFlow+ forward made {len(calls)} SIMT K3 launches, not 9")
+        plus_module.fused_convs = recording
+        try:
+            forward_flows(models[label], x1, x2)
+        finally:
+            plus_module.fused_convs = real
+        require(len(rec) == 9, f"one {label} EEMFlow+ forward made {len(rec)} SGU and decoder K3 calls, not 9")
     fused_model = models["fused"]
     decoders = iter(getattr(fused_model, f"decoder{l}") for l in (6, 5, 4, 3, 2))
     standard_mods = [fused_model.cdc_model.dense_estimator_mask if c[0].shape[1] == 64 else next(decoders)
-                     for c in calls]
+                     for c in calls["fused"]]
+    labels = []
     flops = nbytes = 0
-    worst = 0.0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
     with torch.inference_mode():
-        for (x, ws, bs, pool, dtype, emit_full, relus, concat, packed), mod in zip(calls, standard_mods):
-            chain = chain_channels(x.shape[1], ws, concat)
+        for i, ((x, ws, bs, pool, dtype, emit_full, relus, concat, packed, groups, shuffle), mod) in enumerate(
+                zip(calls["fused"], standard_mods)):
             B_, _, h, w = x.shape
-            # the function's work from the module's own weights: the fused
-            # decoders take grouped convs as dense kernels whose
-            # off-group products are zeros, which the function does not need
+            chain = chain_channels(x.shape[1], ws, concat or (False,) * len(ws), groups)
+            labels.append(f"{'SGU' if x.shape[1] == 64 else 'decoder'} {h}x{w}")
             convs = [m for m in mod.modules() if isinstance(m, torch.nn.Conv2d)]
             require(len(convs) == len(ws) and all(c.stride == (1, 1) for c in convs),
-                    f"the standard module of the K3 SIMT chain {chain} has other convs than the chain")
+                    f"the standard module of the K3 chain {chain} has other convs than the chain")
             flops += sum(2 * B_ * h * w * c.weight.numel() for c in convs)
             nbytes += 4 * (x.numel() + sum(c.weight.numel() + c.bias.numel() for c in convs) + B_ * chain[-1] * h * w)
-            got, _ = real(x, ws, bs, pool, dtype, emit_full, relus, concat, packed)
-            ref, _ = k3.plain(x, ws, bs, pool, dtype, emit_full, relus, concat)
-            err, scale = rel_err(got, ref)
-            worst = max(worst, err)
-            require(err <= K3_TOL["float32"] * scale, f"K3 SIMT on EEMFlow+'s forward input {list(x.shape)} disagrees")
+            for mode in ("fused", "fused bf16"):
+                c = calls[mode][i]
+                got, _ = real(*c)
+                ref, _ = k3.plain(*c[:8], c[9], c[10])
+                err, scale = rel_err(got, ref)
+                key = str(c[4]).split(".")[1]
+                worst[key] = max(worst[key], err)
+                require(err <= K3_TOL[key] * scale,
+                        f"K3 on EEMFlow+'s forward input {list(x.shape)} ({key}) disagrees with its plain version")
 
-        def simt():
-            return [real(*c) for c in calls]
+        def run(mode):
+            return lambda: [real(*c) for c in calls[mode]]
 
         def plain():
-            return [k3.plain(x, ws, bs, pool, dtype, emit_full, relus, concat)
-                    for x, ws, bs, pool, dtype, emit_full, relus, concat, _ in calls]
+            return [k3.plain(*c[:8], c[9], c[10]) for c in calls["fused"]]
 
         def standard():
-            return [m(c[0]) for m, c in zip(standard_mods, calls)]
+            return [m(c[0]) for m, c in zip(standard_mods, calls["fused"])]
 
-        dev = cold_queued_ms(simt, 5, device)
-        warm = queued_ms(simt, reps=5)
-        wrapper = cuda_ms(simt, reps=5)
+        dev = cold_queued_ms(run("fused"), 5, device)
+        warm = queued_ms(run("fused"), reps=5)
+        wrapper = cuda_ms(run("fused"), reps=5)
+        dev16 = cold_queued_ms(run("fused bf16"), 5, device)
+        wrapper16 = cuda_ms(run("fused bf16"), reps=5)
         plain_ms = cuda_ms(plain, reps=5)
         std_ms = cold_queued_ms(standard, 2, device)
-    bound, by = bound_ms(nbytes, flops)
-    tiles = sorted({str(k3._plan_tile(chain_channels(c[0].shape[1], c[1], c[7]), None)) for c in calls})
-    say(f"K3 SIMT (fused_convs.cu), the 9 launches of one EEMFlow+ 720x1280 B=1 fused forward (SGU levels 5..2, "
-        f"decoders 6..2; tiles {', '.join(tiles)}): {dev:.4f} ms on the device after an L2 flush ({warm:.4f} warm, "
-        f"queued; {flops / dev / 1e9:.1f} TFLOP/s of the function), {wrapper:.4f} ms of wrapper calls back to back; "
-        f"bound {bound:.4f} ms ({by}: {flops} FLOP of the function, the grouped convs as grouped, at the float32 "
-        f"SIMT peak; {nbytes} B); plain versions "
-        f"{plain_ms:.4f} ms; standard modules (cuDNN convs, the decoders' grouped convs as grouped) {std_ms:.4f} ms "
-        f"on the device after an L2 flush; max|Δ| to the plain version on these inputs {worst:.3e}")
-    errs["fused_convs_pool_simt"] = max(errs["fused_convs_pool_simt"], worst)
-    for label, m in models.items():
-        run = lambda m=m: forward_flows(m, x1, x2)
-        flow = run()
+        per_chain = {mode: [cold_queued_ms(lambda c=c: real(*c), 5, device) for c in calls[mode]]
+                     for mode in calls}
+    bound, by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+    bound16, by16 = bound_ms(nbytes, flops, PEAK_BF16_FLOP_PER_S)
+    simt_ms = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    n_launches = {mode: sum(len(c[8].launches) for c in calls[mode]) for mode in calls}
+    for mode in calls:
+        for lab, c, t in zip(labels, calls[mode], per_chain[mode]):
+            plan = ", ".join(f"convs {L.lo + 1}-{L.hi} tile {L.plan['tile'][0]}x{L.plan['tile'][1]} ring "
+                             f"{L.plan['ring']} ({L.plan['ring_uses']} uses) {L.plan['smem_bytes']} B"
+                             for L in c[8].launches)
+            say(f"K3 plan EEMFlow+ {lab} {mode}: {len(c[8].launches)} launches [{plan}]: {t:.4f} ms on the "
+                f"device after an L2 flush")
+    say(f"K3 on EEMFlow+'s 9 chains of one 720x1280 B=1 fused forward (SGU levels 5..2, decoders 6..2; "
+        f"{n_launches['fused']} launches): {dev:.4f} ms on the device after an L2 flush ({warm:.4f} warm, queued; "
+        f"{flops / dev / 1e9:.1f} TFLOP/s of the function), {wrapper:.4f} ms of wrapper calls back to back; bound "
+        f"{bound:.4f} ms ({by}: 3 TF32 products of the split for {flops} FLOP of the function, the grouped convs "
+        f"as grouped, at the TF32 peak; {nbytes} B); float32 SIMT figure {simt_ms:.4f} ms; bf16 operands "
+        f"({n_launches['fused bf16']} launches) {dev16:.4f} ms after an L2 flush, {wrapper16:.4f} ms of wrapper "
+        f"calls (bound {bound16:.4f} ms, {by16}); plain versions {plain_ms:.4f} ms; standard modules (cuDNN "
+        f"convs, the decoders' grouped convs as grouped) {std_ms:.4f} ms on the device after an L2 flush; "
+        f"max|Δ| to the plain version on these inputs float32 {worst['float32']:.3e}, bf16 "
+        f"{worst['bfloat16']:.3e}")
+    for line in ptxas_lines("fused_convs_tc"):
+        say(f"K3 {line}")
+    chains = (("SGU", [64, 96, 128, 160, 176, 184, 3], None, {"concat": _SGU[1]}),
+              ("decoder", [87, 96, 96, 96, 96, 64, 32, 2], None, {"groups": _G, "shuffle": _G}))
+    for inst in k3.kernel_info(chains, device):
+        say(f"K3 instance for the {inst['chain']} {inst['mode']} convs {inst['convs'][0] + 1}-{inst['convs'][1]} "
+            f"(NT={inst['nt']}): {inst['threads']} threads, {inst['registers']} registers, {inst['local_bytes']} B "
+            f"local (spills), {inst['ctas_per_sm']} CTA(s) an SM at its {inst['smem_bytes']} B of shared memory; "
+            f"tile {inst['tile'][0]}x{inst['tile'][1]}, ring of {inst['ring']} stages of {inst['stage_bytes']} B, "
+            f"passes {inst['passes']}")
+    times_plus_cuts(device, calls)
+    times_k3_launch_plans(device)
+    errs["fused_convs_pool_plus_chains"] = max(errs["fused_convs_pool_plus_chains"], worst["float32"])
+
+    ref = None
+    for label, kw in PLUS_FAST_CANDIDATES:
+        m = get_eval_model("eemflow_plus", **kw)
+        load_model_checkpoint(m, PLUS_CKPT, "eemflow_plus")
+        m.to(device)
+        flow = forward_flows(m, x1, x2)
+        if ref is None:
+            ref = flow
+        err = float((flow - ref).abs().max())
+        epe = float(torch.linalg.vector_norm(flow - ref, dim=-1).mean())
+        # back to back only: queuing EEMFlow+'s forward (~1,500 device ops)
+        # behind a sleep failed on the card, the host falling behind
+        b2b = cuda_ms(lambda: forward_flows(m, x1, x2), reps=10, warmup=2)
+        say(f"--fast candidate EEMFlow+ {label} {kw}: forward 720x1280 B=1 {b2b:.3f} ms back to back "
+            f"({1e3 / b2b:.1f} fps); vs standard max|Δ| {err:.3e}, mean end-point distance {epe:.3e} px "
+            f"(parity-safe: {epe <= FAST_EPE_TOL and err <= FORWARD_TOL})")
+    say(f"--fast maps eemflow_plus to {fast_eval_kwargs('eemflow_plus')} (models/registry.FAST_EVAL_KWARGS)")
+    for label in ("standard", "fused"):
+        run_fwd = lambda m=models[label]: forward_flows(m, x1, x2)
+        flow = run_fwd()
         require(tuple(flow.shape) == (1, H, W, 2) and bool(torch.isfinite(flow).all()),
                 f"EEMFlow+ 720x1280 {label} forward is not finite or has the wrong shape")
-        b2b = cuda_ms(run, reps=10, warmup=2)
-        prof = profiled_step(run, reps=5, tmp=tmp)
+        b2b = cuda_ms(run_fwd, reps=10, warmup=2)
+        prof = profiled_step(run_fwd, reps=5, tmp=tmp)
         say(f"EEMFlow+ forward 720x1280 B=1, {label}: {b2b:.3f} ms back to back ({1e3 / b2b:.1f} fps); profiled "
             f"{prof['profiled_ms']:.3f} ms a forward, the device busy {prof['busy_ms']:.3f} ms of it "
             f"({100 * prof['busy_share']:.1f}%, {prof['device_ops']:.0f} kernels and copies)")
     return {
-        "name": "fused_convs_pool_simt", "route": "cuda",
-        "source": "eemflow_tpu_torch/kernels/csrc/fused_convs.cu",
+        "name": "fused_convs_pool_plus_chains", "route": "cuda",
+        "source": "eemflow_tpu_torch/kernels/csrc/fused_convs_tc.cu",
         "replaces": "eemflow_tpu/ops/pallas/fused_convs.py:176",
-        "launches": launches["fused_convs_pool_simt"], "max_abs_err": errs["fused_convs_pool_simt"],
-        "ms": dev, "warm_ms": warm, "wrapper_ms": wrapper, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None, "standard_ms": std_ms,
+        "launches": launches["fused_convs_pool_plus_chains"], "max_abs_err": errs["fused_convs_pool_plus_chains"],
+        "bf16_max_abs_err": worst["bfloat16"], "ms": dev, "warm_ms": warm, "wrapper_ms": wrapper,
+        "bf16_ms": dev16, "bf16_wrapper_ms": wrapper16, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "bf16_bound_ms": bound16, "simt_bound_ms": simt_ms, "library_ms": None, "standard_ms": std_ms,
     }
+
+
+def times_plus_cuts(device, calls: dict) -> None:
+    """The level-2 SGU and decoder chains (720x1280) at the cut their plan
+    takes (one conv a launch: neither fits one launch) and at the fewest
+    launches that fit (SGU convs 1-3 | 4-6, decoder 1-3 | 4-7), on the
+    device after an L2 flush, float32 and bf16, each launch at the tile
+    and split the wrapper picks for the grid: what
+    ``kernels/fused_convs.py`` ``plan_chain`` chose between."""
+    import torch.nn.functional as F
+
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+
+    for mode, rec in calls.items():
+        for c in (rec[7], rec[8]):  # level 2: the SGU, then the decoder
+            x, ws, bs, pool, dtype, emit_full, relus, concat, packed, groups, shuffle = c
+            spec, bf16 = packed.spec, packed.bf16
+            n = len(ws)
+            cuts = {"plan": [(L.lo, L.hi) for L in packed.launches], "fewest launches": [(0, 3), (3, n)]}
+            for label, parts in cuts.items():
+                launches = []
+                for lo, hi in parts:
+                    plan = k3._plan_launch(spec.part(lo, hi, spec.channels()[lo]), None, bf16)
+                    pw = [k3.pack_conv(ws[j], plan, j - lo, bf16) for j in range(lo, hi)]
+                    pb = [F.pad(bs[j].float(), (0, plan["convs"][j - lo]["n8"] * 8 - bs[j].shape[0])).contiguous()
+                          for j in range(lo, hi)]
+                    tiles = tuple((p, k3._static_args(p, pw, pb, relus[lo:hi]))
+                                  for p in k3._tile_plans(plan["spec"], None, bf16))
+                    launches.append(k3.Launch(lo, hi, plan, pw, pb, tiles[0][1], tiles))
+                cut = packed._replace(launches=launches)
+                with torch.inference_mode():
+                    t = cold_queued_ms(lambda: k3.fused_convs(x, ws, bs, pool, dtype, emit_full, relus, concat, cut,
+                                                              groups, shuffle), 5, device)
+                say(f"K3 cut of the {'SGU' if n == 6 else 'decoder'} 192x320 {mode} ({label}): convs "
+                    f"{[(lo + 1, hi) for lo, hi in parts]}: {t:.4f} ms on the device after an L2 flush")
+
+
+def times_k3_launch_plans(device) -> None:
+    """One launch of K3 at every plan its wrapper chooses among (tile, and
+    the split of a one-conv launch's outputs over CTAs), warm, queued, at
+    EEMFlow+'s level 6 (12x20) and level 2 (192x320): a dense conv (the
+    decoders' first, 87 -> 96), a grouped one (96 -> 96, 3 groups) and a
+    concat one (the SGU's third, 128 -> 32 and its 128-channel carry), in
+    float32 and bf16, beside the wrapper's prediction (``pick_tile``:
+    waves x ``cta_us``, whose constants are fitted to these lines) and its
+    pick."""
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+
+    rng = np.random.default_rng(17)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for label, cin, f, g, concat in (("dense 87->96", 87, 96, 1, False), ("grouped 96->96", 96, 96, 3, False),
+                                     ("concat 128->32", 128, 32, 1, True)):
+        w, b = conv_params(rng, (cin // g,), (f,), device)
+        for bf16 in (False, True):
+            launch = k3.pack_chain(w, b, bf16, device, None, (concat,), (g,), (g,), (True,)).launches[0]
+            plans = [p for p, _ in launch.tiles]
+            for h, wd in ((12, 20), (192, 320)):
+                x = torch.randn(1, h, wd, cin, device=device).permute(0, 3, 1, 2)
+                out = torch.empty(1, f + (cin if concat else 0), h, wd, device=device)
+                tiles_of = lambda t: -(-h // t[0]) * -(-wd // t[1])
+                pick = k3.pick_tile(plans, tiles_of, sms)
+                row = []
+                for i, (plan, args) in enumerate(launch.tiles):
+                    one = launch._replace(args=args, tiles=((plan, args),))
+                    with torch.inference_mode():
+                        t = queued_ms(lambda: k3._launch(x, out, None, one), 50)
+                    pred = -(-tiles_of(plan["tile"]) * plan["nsplit"] // sms) * k3.cta_us(plan)
+                    row.append(f"{plan['tile'][0]}x{plan['tile'][1]} split {plan['nsplit']} ({plan['ring_uses']} "
+                               f"uses): {t * 1e3:.1f} us (predicted {pred:.1f}){' *' if i == pick else ''}")
+                say(f"K3 launch by plan, {label} {'bf16' if bf16 else 'float32'} at {h}x{wd} (* the wrapper's "
+                    f"pick): " + "; ".join(row))
 
 
 # serving modes timed in phase 4, at B=1 and B=2
@@ -2062,7 +2260,7 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
             ([getattr(model, n)[0].weight for n in names], [getattr(model, n)[0].bias for n in names])
             for names in LEVEL_CHAINS
         ]
-        packs = [pack_chain(ws, bs, False, device) for ws, bs in chains]
+        packs = [pack_chain(ws, bs, False, device, pool) for (ws, bs), pool in zip(chains, POOLS)]
 
         def fused(frame, lvl):
             return k3.fused_convs(inputs[frame][lvl], *chains[lvl], POOLS[lvl], torch.float32,
@@ -2077,18 +2275,19 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
                 g = getattr(model, n)(g)
             return F.avg_pool2d(g, POOLS[lvl])
 
-        info = k3.kernel_info(device)
-        for inst in info["instances"]:
-            say(f"K3 fused_convs_tc level {inst['level']} {inst['mode']} (NT={inst['nt']}): "
-                f"{inst['threads']} threads, {inst['registers']} registers, {inst['local_bytes']} B local "
-                f"(spills), {inst['ctas_per_sm']} CTA(s) an SM at the level's shared memory")
-        for lv in info["levels"]:
-            say(f"K3 plan level {lv['level']} {lv['mode']}: tile {lv['tile'][0]}x{lv['tile'][1]}, "
-                f"{lv['ctas']} CTAs a frame, ring of {lv['ring']} stages of {lv['stage_bytes']} B, "
-                f"{lv['smem_bytes']} B of shared memory, passes {lv['passes']}")
+        levels = [(f"level {lvl + 1}", [K3_LEVELS[lvl][0][0], *K3_LEVELS[lvl][1]], POOLS[lvl], {})
+                  for lvl in range(3)]
+        for inst, ((cin, h, w), _, _, _) in zip(k3.kernel_info(levels, device), K3_LEVELS * 2):
+            th, tw = inst["tile"]
+            say(f"K3 fused_convs_tc {inst['chain']} {inst['mode']} (NT={inst['nt']}): {inst['threads']} threads, "
+                f"{inst['registers']} registers, {inst['local_bytes']} B local (spills), {inst['ctas_per_sm']} "
+                f"CTA(s) an SM at the level's shared memory")
+            say(f"K3 plan {inst['chain']} {inst['mode']}: tile {th}x{tw}, {-(-h // th) * -(-w // tw)} CTAs a frame, "
+                f"ring of {inst['ring']} stages of {inst['stage_bytes']} B, {inst['smem_bytes']} B of shared "
+                f"memory, passes {inst['passes']}")
         for line in ptxas_lines("fused_convs_tc"):
             say(f"K3 {line}")
-        packs_bf16 = [pack_chain(ws, bs, True, device) for ws, bs in chains]
+        packs_bf16 = [pack_chain(ws, bs, True, device, pool) for (ws, bs), pool in zip(chains, POOLS)]
 
         def fused_bf16(frame, lvl):
             return k3.fused_convs(inputs[frame][lvl], *chains[lvl], POOLS[lvl], torch.bfloat16,

@@ -7,9 +7,8 @@ one C-ABI shared library (``build.py``) and bound with ``ctypes``.
   * K2 ``local_corr`` / ``local_corr_levels`` — windowed local correlation,
     up to three levels in one launch
     (replaces ``eemflow_tpu/ops/pallas/local_corr.py`` ``local_correlation_pallas``);
-  * K3 ``fused_convs_pool`` — a 3×3 conv chain + average pool on the
-    tensor cores; chains it does not take run on its SIMT version, counted
-    as ``fused_convs_pool_simt``
+  * K3 ``fused_convs_pool`` — a 3×3 conv chain (concat, grouped and
+    shuffled convs included) + average pool on the tensor cores
     (replaces ``eemflow_tpu/ops/pallas/fused_convs.py`` ``fused_convs_pool``);
   * K4 ``coarse_head`` — EEMFlow's whole coarse stage, one thread-block
     cluster per level
@@ -29,7 +28,7 @@ refuse, on the card, an input that would need one (``refuse_grad``).
 import torch
 
 launch_counts = {
-    "voxel_scatter": 0, "local_corr": 0, "fused_convs_pool": 0, "fused_convs_pool_simt": 0,
+    "voxel_scatter": 0, "local_corr": 0, "fused_convs_pool": 0,
     "coarse_head": 0, "update_block": 0,
     # not a launch: inputs K5's wrapper had to copy into a layout its
     # loader reads (0 on ERAFT's main path)

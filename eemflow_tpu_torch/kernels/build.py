@@ -24,7 +24,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(HERE, "_build")
 SOURCES = (
-    "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "fused_convs_tc.cu", "coarse_head.cu",
+    "voxel_scatter.cu", "local_corr.cu", "fused_convs_tc.cu", "coarse_head.cu",
     "update_block.cu", "update_block_tf32.cu", "update_block_bf16.cu",
 )
 HEADERS = ("tensor_core.cuh", "update_block.cuh")
@@ -126,8 +126,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.local_corr_levels_launch.argtypes = [p, p]
     lib.local_corr_levels_launch.restype = i
     lib.local_corr_args_size.restype = i
-    lib.fused_convs_launch.argtypes = [p, p]
-    lib.fused_convs_launch.restype = i
     lib.coarse_head_launch.argtypes = [p, p]
     lib.coarse_head_launch.restype = i
     lib.update_block_motion_launch.argtypes = [p, p]
@@ -142,7 +140,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.coarse_head_max_clusters.restype = i
     lib.coarse_head_kernel_info.argtypes = [p]
     lib.coarse_head_kernel_info.restype = i
-    lib.fused_convs_args_size.restype = i
     lib.fused_convs_tc_args_size.restype = i
     lib.coarse_head_args_size.restype = i
     lib.update_block_args_size.restype = i

@@ -27,15 +27,25 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes));
 }
 
-// Hopper's bulk copy of `bytes` contiguous bytes (a multiple of 16) into
-// shared memory, completing as transactions on the mbarrier `bar`, which
-// this thread arms first
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // after the generic reads of dst
+// arms the mbarrier `bar` (this thread's arrival) for `bytes` of bulk
+// copies into shared memory, after the generic reads of their destination
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Hopper's bulk copy of `bytes` contiguous bytes (a multiple of 16) into
+// shared memory, completing as transactions on the armed mbarrier `bar`
+__device__ __forceinline__ void bulk_copy_tx(uint32_t dst, const void* src, int bytes, uint32_t bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
                ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
                : "memory");
+}
+
+// one bulk copy that arms `bar` for itself
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  mbar_expect_tx(bar, bytes);
+  bulk_copy_tx(dst, src, bytes, bar);
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -107,6 +117,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bytes from shared memory at a shared-space address
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+  return v;
 }
 
 // 4 bytes from global to shared memory; src_bytes 0 writes zeros

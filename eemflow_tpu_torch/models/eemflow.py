@@ -197,7 +197,8 @@ class EEMFlow(nn.Module):
             packs = self._fast_cache.get(
                 ("pyramid", x.device, dtype),
                 [t for ws, bs in chains for t in ws + bs],
-                lambda: [pack_chain(ws, bs, dtype == torch.bfloat16, x.device) for ws, bs in chains],
+                lambda: [pack_chain(ws, bs, dtype == torch.bfloat16, x.device, pool)
+                         for (ws, bs), pool in zip(chains, POOLS)],
             )
         pooled = []
         f = x

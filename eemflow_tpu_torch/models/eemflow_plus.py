@@ -27,15 +27,15 @@ infers it).
 
 Eval-only fused modes (JAX ``:196``, ``:239``, ``:292``; same parameters):
 ``fast_pyramid`` runs each level's stride-1 convs (and level 3's pool) as
-one call of K3; ``fast_decoders`` each decoder, its grouped convs made
-dense and the shuffles folded into the next conv's inputs
-(``ops/coarse_head.decoder_dense_kernels``), as one K3 chain; ``fast_sgu``
-the SGU's densely connected estimator as one K3 concat chain.
-``fast_dtype="bf16"`` rounds the conv operands to bf16.  K3 takes a chain
-on its tensor-core kernel where ``kernels.fused_convs.tc_eligible`` says
-so (the pyramid) and on its SIMT kernel otherwise (the decoders, whose
-87 input and 2 output channels are not multiples of 16, and the SGU's
-concat chain), counted in ``launch_counts["fused_convs_pool_simt"]``.
+one call of K3; ``fast_decoders`` each decoder as one K3 chain, its convs
+2-4 grouped and each followed by its channel shuffle (JAX makes them
+dense and folds the shuffles into the next conv,
+``ops/coarse_head.decoder_dense_kernels``; the port's K3 takes them as
+they are); ``fast_sgu`` the SGU's densely connected estimator as one K3
+concat chain.  ``fast_dtype="bf16"`` rounds the conv operands to bf16.
+Every chain runs on K3's tensor-core kernel; a chain whose buffers do not
+fit one launch's shared memory runs one conv a launch
+(``kernels.fused_convs.plan_chain``: the SGU and the decoders do).
 As in JAX, a level shorter than a chain's halo (6 rows for the SGU, 7 for
 a decoder) runs the standard modules: model semantics, not a fallback;
 at 720×1280 every level is tall enough.  On the card the fused modes
@@ -54,7 +54,6 @@ from eemflow_tpu_torch.kernels import COMPUTE_DTYPES
 from eemflow_tpu_torch.kernels.fused_convs import fused_convs, pack_chain
 from eemflow_tpu_torch.models.eemflow import INDEX_53, Decoder
 from eemflow_tpu_torch.models.layers import ConvRelu, conv2d
-from eemflow_tpu_torch.ops.coarse_head import decoder_dense_kernels
 from eemflow_tpu_torch.ops.correlation import local_correlation_levels
 from eemflow_tpu_torch.ops.pack_cache import PackCache
 from eemflow_tpu_torch.ops.pad import InputPadder
@@ -131,7 +130,7 @@ class CDCModel(nn.Module):
         if feat.device.type == "cuda":
             packed = self._fast_cache.get(
                 ("sgu", feat.device, dtype), ws + bs,
-                lambda: pack_chain(ws, bs, dtype == torch.bfloat16, feat.device, concat),
+                lambda: pack_chain(ws, bs, dtype == torch.bfloat16, feat.device, concat=concat, relus=relus),
             )
         out, _ = fused_convs(feat.float(), ws, bs, None, dtype, True, relus, concat, packed)
         return out.to(feat.dtype)
@@ -269,16 +268,20 @@ class EEMFlowPlus(nn.Module):
         f3 = self.pconv3_3(self.pconv3_2(self.pconv3_1(f2)))
         return f1, f2, f3
 
-    def _chain(self, key, params, make, device):
-        """(OIHW weights, biases, relus, packed or None) of a fused chain
-        (``make()`` gives the first three), made once per placement and
+    def _chain(self, key, params, make, device, pool=None):
+        """(OIHW weights, biases, flags, packed or None) of a fused chain:
+        ``make()`` gives the weights, biases and the ``fused_convs`` flags
+        (``relus``, ``groups``, ``shuffle``); made once per placement and
         kept while ``params`` are."""
         dtype = self._dtype()
 
         def build():
-            ws, bs, relus = make()
-            packed = pack_chain(ws, bs, dtype == torch.bfloat16, device) if device.type == "cuda" else None
-            return ws, bs, relus, packed
+            ws, bs, flags = make()
+            packed = None
+            if device.type == "cuda":
+                packed = pack_chain(ws, bs, dtype == torch.bfloat16, device, pool, groups=flags.get("groups"),
+                                    shuffle=flags.get("shuffle"), relus=flags.get("relus"))
+            return ws, bs, flags, packed
 
         return self._fast_cache.get((key, device, dtype), params, build)
 
@@ -294,7 +297,7 @@ class EEMFlowPlus(nn.Module):
                                   (self.pconv3_1, ("pconv3_2", "pconv3_3"), 2)):
             ws = [getattr(self, n)[0].weight for n in names]
             bs = [getattr(self, n)[0].bias for n in names]
-            ws, bs, _, packed = self._chain(names, ws + bs, lambda ws=ws, bs=bs: (ws, bs, None), x.device)
+            ws, bs, _, packed = self._chain(names, ws + bs, lambda ws=ws, bs=bs: (ws, bs, {}), x.device, pool)
             g = stem(f)
             f, pooled = fused_convs(g.float(), ws, bs, pool, dtype, True, packed=packed)
             f = f.to(g.dtype)
@@ -302,19 +305,22 @@ class EEMFlowPlus(nn.Module):
         return out[1], out[2], pooled.to(x.dtype)
 
     def _fast_decoder(self, name: str, x: torch.Tensor):
-        """The decoder as one K3 chain, or None on a grid shorter than its
-        halo (the standard module runs there)."""
+        """The decoder as one K3 chain (convs 2-4 grouped, each followed by
+        its shuffle), or None on a grid shorter than its halo (the standard
+        module runs there)."""
         if x.shape[2] < DECODER_HALO:
             return None
         dec = getattr(self, name)
-        sd = {f"{name}.{k}": v for k, v in dec.named_parameters()}
 
         def make():
-            ks, bs, relus = decoder_dense_kernels(sd, name, self.groups)
-            return [k.permute(3, 2, 0, 1).contiguous() for k in ks], bs, relus
+            convs = [dec.conv1, dec.conv2, dec.conv3, dec.conv4, dec.conv5, dec.conv6]
+            ws = [c[0].weight for c in convs] + [dec.conv7.weight]
+            bs = [c[0].bias for c in convs] + [dec.conv7.bias]
+            g = (1, self.groups, self.groups, self.groups, 1, 1, 1)
+            return ws, bs, {"relus": (True,) * 6 + (False,), "groups": g, "shuffle": g}
 
-        ws, bs, relus, packed = self._chain(name, list(dec.parameters()), make, x.device)
-        out, _ = fused_convs(x.float(), ws, bs, None, self._dtype(), True, relus, packed=packed)
+        ws, bs, flags, packed = self._chain(name, list(dec.parameters()), make, x.device)
+        out, _ = fused_convs(x.float(), ws, bs, None, self._dtype(), True, packed=packed, **flags)
         return out.to(x.dtype)
 
     def _decode(self, name: str, x: torch.Tensor, fast: bool):

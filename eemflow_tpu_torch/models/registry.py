@@ -25,7 +25,10 @@ ALIASES = {"EEMFlow": "eemflow"}
 # fast_pyramid (kernels K4 and K3) 1.416 / 1.236, all three 1.508 / 1.228;
 # the fused flow within 3e-8 of the standard one (mean end-point distance
 # 4e-9 px).  None for EEMFlow+ and ERAFT, as in JAX: their fused modes are
-# not faster on the card (EEMFlow+'s SIMT chains, PERF.md).
+# not faster on the card back to back.  EEMFlow+'s forward is bound by the
+# host's issue: with K3 on the tensor cores its fused modes save device time
+# but no candidate beat the standard forward back to back ("--fast candidate
+# EEMFlow+" lines, PERF.md §6).
 FAST_EVAL_KWARGS = {"eemflow": {"fast_head": True, "fast_pyramid": True}}
 
 

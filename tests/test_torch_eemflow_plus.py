@@ -304,10 +304,11 @@ def test_timing_tools_take_eemflow_plus(tmp_path, tool):
 
 
 def test_fused_chains_take_the_kernel_eemflow_plus_needs():
-    """On the card, the decoders' chain [87, 96, 96, 96, 96, 64, 32, 2] and
-    the SGU's concat chain [64, 96, 128, 160, 176, 184, 3] go to K3's SIMT
-    kernel (not multiples of 16; concat), the pyramid's to the tensor-core
-    one; each has a launch plan that fits the shared memory."""
+    """On the card, the decoders' chain [87, 96, 96, 96, 96, 64, 32, 2]
+    (convs 2-4 grouped by 3 and shuffled) and the SGU's concat chain [64,
+    96, 128, 160, 176, 184, 3] go to K3's tensor-core kernel, cut into
+    several launches (neither fits one), the pyramid's chains in one each;
+    each launch's plan fits the shared memory."""
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.ops.fused_convs import chain_channels
 
@@ -316,10 +317,16 @@ def test_fused_chains_take_the_kernel_eemflow_plus_needs():
     concat = (True,) * 5 + (False,)
     sgu = chain_channels(64, ws, concat)
     assert sgu == [64, 96, 128, 160, 176, 184, 3]
-    assert not k3.tc_eligible(sgu, concat) and k3._plan_tile(sgu, None) is not None
-    dec = [87, 96, 96, 96, 96, 64, 32, 2]
-    assert not k3.tc_eligible(dec, (False,) * 7) and k3._plan_tile(dec, None) is not None
-    for chain, pool in (([16, 16], None), ([32, 32, 32], None), ([64, 64, 64], 2)):
-        assert k3.tc_eligible(chain, (False,) * (len(chain) - 1))
+    g = (1, 3, 3, 3, 1, 1, 1)
+    dec = model.decoder2
+    dws = [dec.conv1[0].weight, dec.conv2[0].weight, dec.conv3[0].weight, dec.conv4[0].weight,
+           dec.conv5[0].weight, dec.conv6[0].weight, dec.conv7.weight]
+    assert chain_channels(87, dws, (False,) * 7, g) == [87, 96, 96, 96, 96, 64, 32, 2]
+    specs = [(k3.chain_spec(64, [w.shape[0] for w in ws], concat), None, False),
+             (k3.chain_spec(87, [w.shape[0] for w in dws], None, g, g), None, False),
+             (k3.chain_spec(16, (16,)), None, True), (k3.chain_spec(32, (32, 32)), None, True),
+             (k3.chain_spec(64, (64, 64)), 2, True)]
+    for spec, pool, one in specs:
         for bf16 in (False, True):
-            assert k3.plan_tc(chain, pool, bf16) is not None
+            plans = k3.plan_chain(spec, pool, bf16)
+            assert (len(plans) == 1) == one and all(p["smem_bytes"] <= k3.MAX_SMEM for *_, p in plans)

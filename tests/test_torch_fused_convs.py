@@ -8,7 +8,9 @@ bf16 operands: both sides round the same operands, and a product of two
 bf16 values is exact in float32, but an intermediate that differs in its
 last float32 bit can round to the neighbouring bf16 value: atol 1e-3.
 Also the kernel's launch planning (shared memory, tiles, the split of a
-chain that does not fit), which runs without a card."""
+chain that does not fit) and weight packing, which run without a card, and
+the port's own ``groups``/``shuffle`` arguments (EEMFlow+'s grouped
+decoders, which the JAX function takes as dense kernels)."""
 
 import numpy as np
 import pytest
@@ -126,20 +128,21 @@ def test_fused_convs_checks_match_jax():
 
 def test_kernel_plan_at_eemflow_levels():
     """The 720x1280 levels each fit one tensor-core launch, with the tiles
-    and shared memory the kernel's note gives, at any batch size; chains the tensor-core kernel
-    does not take keep the SIMT plan (tile = the pool window); a chain too
-    wide for one launch is split, and one conv that cannot fit raises."""
+    and shared memory the kernel's note gives, at any batch size; the
+    route takes concat chains and channel counts off multiples of 16; a
+    chain too wide for one launch is split, and one conv that cannot fit
+    raises."""
     plans = {
         "level1": ([16, 16], 32, (32, 32), 1, 113_152),
         "level2": ([32, 32, 32], 16, (16, 16), 3, 227_456),
-        "level3": ([64, 64, 64], 8, (8, 16), 3, 213_248),
+        "level3": ([64, 64, 64], 8, (8, 16), 2, 213_248),  # 2 stages of 3 K steps: fewer ring uses than 3 of 2
     }
     for name, (chain, pool, tile, ring, nbytes) in plans.items():
-        assert k3.tc_eligible(chain, (False,) * (len(chain) - 1)), name
         plan = k3.plan_tc(chain, pool, False)
         assert (plan["tile"], plan["ring"], plan["smem_bytes"]) == (tile, ring, nbytes), name
         assert k3.plan_tc(chain, pool, True)["tile"] == tile, name
-        assert k3._plan_tile(chain, pool) == (pool, pool), name
+        launches = k3.plan_chain(k3.chain_spec(chain[0], chain[1:]), pool, False)
+        assert [(lo, hi) for lo, hi, _ in launches] == [(0, len(chain) - 1)], name
     # pool windows that divide 8 take 8x16 tiles, then 8x8; other windows
     # the window itself; without a pool 16x16 first
     assert k3.plan_tc([32, 32], 4, bf16=False)["tile"] == (8, 16)
@@ -147,22 +150,29 @@ def test_kernel_plan_at_eemflow_levels():
     assert k3.plan_tc([32, 32], None, bf16=False)["tile"] == (16, 16)
     assert k3.plan_tc([32, 32, 32], 32, bf16=False) is None
     assert k3.plan_tc([32, 32], 32, bf16=False)["tile"] == (32, 32)
-    assert k3._plan_tile([32, 32, 32], 32) is None
-    assert k3._plan_tile([16, 16, 16], None) == (k3.FIXED_TILE, k3.FIXED_TILE)
-    assert not k3.tc_eligible([16, 24, 32], (True, True))  # a concat chain stays SIMT
-    assert not k3.tc_eligible([8, 8], (False,))
+    split = k3.plan_chain(k3.chain_spec(32, (32, 32)), 32, False)
+    assert [(lo, hi, p["tile"]) for lo, hi, p in split] == [(0, 1, (16, 16)), (1, 2, (32, 32))]
+    assert k3.plan_tc([16, 16, 16], None, bf16=False)["tile"] == (16, 16)
+    # a concat chain and ragged channels: padded to whole K chunks
+    assert k3.plan_tc([16, 24, 32], None, bf16=False, concat=(True, True))["tile"] == (16, 16)
+    assert k3.plan_tc([8, 8], None, bf16=False)["convs"][0]["kw"] == 8
+    assert k3.plan_tc([3, 5], None, bf16=True)["convs"][0]["kw"] == 16
+    with pytest.raises(ValueError, match="does not fit"):
+        k3.plan_chain(k3.chain_spec(2048, (2048,)), None, False)
 
 
 def test_kernel_weight_packing():
-    """The tensor-core layout (K5's k_order + fragment_order) holds every
-    OIHW weight once, in two TF32 planes that add up to it (float32) or
-    rounded to bf16; the SIMT layout is [Cin][9][Cout padded to 8]; and
-    pack_chain picks the layout by the chain's shape."""
+    """The tensor-core layout (K5's fragment_order, K = tap then channel)
+    holds every OIHW weight once, in two TF32 planes that add up to it
+    (float32) or rounded to bf16; a conv whose channels are no multiple of
+    the K chunk gets zero rows inside each tap and zero columns past its
+    outputs; and pack_chain plans and packs a concat chain as one launch
+    with its biases padded to whole n8 tiles."""
     from eemflow_tpu_torch.kernels.update_block import tf32_round
 
     rng = np.random.default_rng(2)
     w = torch.from_numpy(rng.standard_normal((16, 32, 3, 3)).astype(np.float32))
-    p = k3.pack_tc(w, bf16=False)
+    p = k3.pack_conv(w, k3.plan_tc([32, 16], None, False), 0, bf16=False)
     # [steps, n8, kk, plane, g, t, h]: K row 8kk + 4h + t of the step, column 8j + g
     assert tuple(p.shape) == (9, 2, 4, 2, 8, 4, 2)
     big, small = p[:, :, :, 0], p[:, :, :, 1]
@@ -174,15 +184,63 @@ def test_kernel_weight_packing():
         float(w[8 * j + g, ci, tap // 3, tap % 3]), rel=2e-7, abs=1e-12)
     total = (big + small).double().sum()
     assert float(total) == pytest.approx(float(w.double().sum()), rel=1e-6)
-    pb = k3.pack_tc(w, bf16=True)
+    pb = k3.pack_conv(w, k3.plan_tc([32, 16], None, True), 0, bf16=True)
     assert pb.dtype == torch.bfloat16 and pb.numel() == w.numel()
     assert torch.equal(torch.sort(pb.float().flatten())[0], torch.sort(w.to(torch.bfloat16).float().flatten())[0])
 
-    ps = k3.pack_weight(torch.from_numpy(rng.standard_normal((5, 3, 3, 3)).astype(np.float32)), bf16=False)
-    assert tuple(ps.shape) == (3, 9, 8) and float(ps[:, :, 5:].abs().max()) == 0.0
-    assert tuple(k3.pack_bias(torch.ones(5)).shape) == (8,)
-    kinds = {k for *_, k in k3.pack_chain([w, w[:, :16]], [torch.zeros(16)] * 2, False, "cpu")}
-    assert kinds == {"tc"}
-    ws = [torch.zeros(8, 16, 3, 3), torch.zeros(8, 24, 3, 3)]
-    kinds = {k for *_, k in k3.pack_chain(ws, [torch.zeros(8)] * 2, False, "cpu", concat=(True, False))}
-    assert kinds == {"simt"}
+    # 3 -> 5 channels: K = 9 taps x 8 (3 real, 5 zero) padded to 3 steps, N one n8 tile
+    w5 = torch.from_numpy(rng.standard_normal((5, 3, 3, 3)).astype(np.float32))
+    plan = k3.plan_tc([3, 5], None, False)
+    kmat = k3._window_matrix(w5, plan, 0).reshape(9, 8, 8)
+    assert torch.equal(kmat[:, :3, :5], w5.permute(2, 3, 1, 0).reshape(9, 3, 5))
+    assert float(kmat[:, 3:].abs().sum() + kmat[:, :, 5:].abs().sum()) == 0.0
+    assert tuple(k3.pack_conv(w5, plan, 0, False).shape) == (3, 1, 4, 2, 8, 4, 2)
+    ws = [torch.zeros(8, 16, 3, 3), torch.zeros(3, 24, 3, 3)]
+    packed = k3.pack_chain(ws, [torch.ones(8), torch.ones(3)], False, "cpu", concat=(True, False))
+    (launch,) = packed.launches
+    assert (launch.lo, launch.hi) == (0, 2) and [tuple(b.shape) for b in launch.biases] == [(8,), (8,)]
+    assert float(launch.biases[1][3:].abs().sum()) == 0.0
+
+
+def _decoder(rng, cin: int, groups: int, mid: int):
+    """A decoder (``models/eemflow.Decoder``) with He-scaled random weights."""
+    from eemflow_tpu_torch.models.eemflow import Decoder
+
+    dec = Decoder(cin, groups, mid)
+    with torch.no_grad():
+        for name, t in dec.named_parameters():
+            fan_in = t[0].numel() if t.dim() == 4 else 1
+            t.copy_(torch.from_numpy((rng.standard_normal(t.shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)))
+    return dec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_grouped_shuffled_chain_matches_jax_dense(dtype):
+    """EEMFlow+'s decoder through the port's plain twin with its convs 2-4
+    grouped and shuffled (``groups``, ``shuffle``: what the kernel runs)
+    equals the JAX ``fused_convs_pool`` on the decoder's dense expansion
+    with the shuffles folded into the next conv's inputs
+    (``decoder_dense_kernels``); and equals the decoder module itself."""
+    from eemflow_tpu_torch.ops.coarse_head import decoder_dense_kernels
+
+    rng = np.random.default_rng(7)
+    dec = _decoder(rng, 13, 3, 12)
+    x = rng.standard_normal((1, 16, 16, 13)).astype(np.float32)
+    sd = {f"d.{k}": v for k, v in dec.state_dict().items()}
+    ks, bs, relus = decoder_dense_kernels(sd, "d", 3)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want, _ = jax_fused_convs_pool(jnp.asarray(x), [jnp.asarray(k.numpy()) for k in ks],
+                                   [jnp.asarray(b.numpy()) for b in bs], pool=None, compute_dtype=jdt, relus=relus)
+    convs = [dec.conv1, dec.conv2, dec.conv3, dec.conv4, dec.conv5, dec.conv6]
+    ws = [c[0].weight.detach() for c in convs] + [dec.conv7.weight.detach()]
+    b_ = [c[0].bias.detach() for c in convs] + [dec.conv7.bias.detach()]
+    g = (1, 3, 3, 3, 1, 1, 1)
+    got, _ = fused_convs_pool(torch.from_numpy(x), ws, b_, None, compute_dtype=dtype, relus=relus, groups=g,
+                              shuffle=g)
+    _close(want, got, BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
+    if dtype == torch.float32:
+        with torch.no_grad():
+            ref = dec(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), **F32_TOL)
+    with pytest.raises(ValueError, match="shuffled"):
+        fused_convs_pool(torch.from_numpy(x), ws, b_, None, relus=relus, groups=g, shuffle=(1, 5, 3, 3, 1, 1, 1))

@@ -147,7 +147,7 @@ def test_fused_convs_kernel_matches_twin(cuda, level, dtype, batch):
 def test_fused_convs_kernel_concat_chain_and_layouts(cuda):
     """A FlowEstimatorDense-style concat chain with a linear last conv and
     no pool at a ragged size, from an NHWC view; and a pooled chain that
-    does not fit one launch's shared memory, split at its midpoint."""
+    does not fit one launch's shared memory, split by its plan."""
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.kernels import launch_counts
 
@@ -162,9 +162,8 @@ def test_fused_convs_kernel_concat_chain_and_layouts(cuda):
     torch.cuda.synchronize()
     assert none is None and tuple(got.shape) == (2, 3, 37, 45)
     assert _max_rel_err(got, ref) <= K3_TOL[torch.float32]
-    # a concat chain runs on the SIMT kernel, counted apart
-    assert launch_counts["fused_convs_pool_simt"] == before["fused_convs_pool_simt"] + 1
-    assert launch_counts["fused_convs_pool"] == before["fused_convs_pool"]
+    # a concat chain runs on the tensor cores too, in one launch
+    assert launch_counts["fused_convs_pool"] == before["fused_convs_pool"] + 1
 
     x = torch.from_numpy(rng.standard_normal((1, 32, 64, 64)).astype(np.float32)).to(cuda)
     ws, bs = _conv_params(rng, (32, 32), (32, 32), cuda)
@@ -754,54 +753,73 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert float((g_gpu[name] - g).abs().max()) <= 1e-3 * float(g.abs().max()), name
 
 
-def _he_chain(rng, cin, widths, concat, device):
+def _he_chain(rng, cin, widths, concat, groups, device):
     ws, bs = [], []
-    for f, cat in zip(widths, concat):
-        w = rng.standard_normal((f, cin, 3, 3)) * np.sqrt(2.0 / (9 * cin))
+    for f, cat, g in zip(widths, concat, groups):
+        w = rng.standard_normal((f, cin // g, 3, 3)) * np.sqrt(2.0 / (9 * cin / g))
         ws.append(torch.from_numpy(w.astype(np.float32)).to(device))
         bs.append(torch.from_numpy((rng.standard_normal(f) * 0.1).astype(np.float32)).to(device))
         cin = f + (cin if cat else 0)
     return ws, bs
 
 
+_DEC_G = (1, 3, 3, 3, 1, 1, 1)
+# (input [B, C, H, W], widths, concat, groups and shuffle)
+PLUS_K3_CHAINS = {
+    "sgu": ((1, 64, 96, 160), (32, 32, 32, 16, 8, 3), (True,) * 5 + (False,), (1,) * 6),
+    "decoder": ((1, 87, 96, 160), (96, 96, 96, 96, 64, 32, 2), (False,) * 7, _DEC_G),
+    "decoder_level6": ((2, 87, 12, 20), (96, 96, 96, 96, 64, 32, 2), (False,) * 7, _DEC_G),
+    "ragged_concat": ((2, 13, 37, 45), (6, 5, 3), (True, True, False), (1,) * 3),
+}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("chain", ["sgu", "decoder"])
+@pytest.mark.parametrize("chain", sorted(PLUS_K3_CHAINS))
 def test_eemflow_plus_k3_chains_match_plain(cuda, chain, dtype):
-    """EEMFlow+'s K3 chains at a 720x1280 level (96x160): the SGU's concat
-    chain and a decoder's dense chain, on the SIMT kernel, against the plain
-    version at He-scaled random weights; K3_TOL of chip_smoke.py."""
+    """K3's tensor-core route on EEMFlow+'s chains, at a 720x1280 level
+    (96x160) and at level 6 (12x20, B=2): the SGU's concat chain and a
+    decoder with its convs 2-4 grouped and shuffled; and a ragged concat
+    chain whose widths are no multiple of 8; against the plain version at
+    He-scaled random weights, K3_TOL of chip_smoke.py, in the launches
+    the plan gives."""
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.kernels import launch_counts
 
     rng = np.random.default_rng(21)
-    if chain == "sgu":
-        cin, widths, concat = 64, (32, 32, 32, 16, 8, 3), (True,) * 5 + (False,)
-    else:
-        cin, widths, concat = 87, (96, 96, 96, 96, 64, 32, 2), (False,) * 7
+    shape, widths, concat, groups = PLUS_K3_CHAINS[chain]
     relus = (True,) * (len(widths) - 1) + (False,)
-    x = torch.from_numpy(rng.standard_normal((1, cin, 96, 160)).astype(np.float32)).to(cuda)
-    ws, bs = _he_chain(rng, cin, widths, concat, cuda)
-    before = launch_counts["fused_convs_pool_simt"]
-    got, _ = k3.fused_convs(x, ws, bs, None, dtype, True, relus, concat)
-    assert launch_counts["fused_convs_pool_simt"] == before + 1
-    ref, _ = k3.plain(x, ws, bs, None, dtype, True, relus, concat)
+    spec = k3.chain_spec(shape[1], widths, concat, groups, groups)
+    launches = len(k3.plan_chain(spec, None, dtype == torch.bfloat16))
+    assert (launches == 1) == (chain == "ragged_concat")  # EEMFlow+'s chains do not fit one launch
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    ws, bs = _he_chain(rng, shape[1], widths, concat, groups, cuda)
+    before = launch_counts["fused_convs_pool"]
+    got, _ = k3.fused_convs(x, ws, bs, None, dtype, True, relus, concat, groups=groups, shuffle=groups)
+    assert launch_counts["fused_convs_pool"] == before + launches
+    ref, _ = k3.plain(x, ws, bs, None, dtype, True, relus, concat, groups, groups)
     torch.cuda.synchronize()
-    tol = (2e-5 if dtype == torch.float32 else 5e-3) * max(1.0, float(ref.abs().max()))
-    assert float((got - ref).abs().max()) <= tol
+    assert bool(torch.isfinite(got).all())
+    assert _max_rel_err(got, ref) <= K3_TOL[dtype]
 
 
 def test_eemflow_plus_on_card_matches_cpu(cuda):
     """EEMFlow+ (golden weights) at 128x192, B=2: the card's standard and
     fused forwards against the CPU's standard forward, 1e-5 of the largest
     flow (float32 in other summation orders through five levels of warp
-    feedback); K2 five launches a forward, K3's SIMT kernel under the
-    fused modes."""
+    feedback); K2 five launches a forward; under the fused modes K3's
+    launches: the pyramid 6, and the SGU and the decoders as their plans
+    cut them at the three levels tall enough for their halo (32x48, 16x24
+    and 8x12), none standard."""
     import os
 
     from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
     from eemflow_tpu_torch.kernels import launch_counts
     from eemflow_tpu_torch.models.registry import get_eval_model
 
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+
+    chain_launches = len(k3.plan_chain(k3.chain_spec(64, (32, 32, 32, 16, 8, 3), (True,) * 5 + (False,)), None, False))
+    chain_launches += len(k3.plan_chain(k3.chain_spec(87, (96, 96, 96, 96, 64, 32, 2), None, _DEC_G, _DEC_G), None, False))
     ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eemflow_plus_hrem_golden.pth.tar")
     rng = np.random.default_rng(8)
     ev = [torch.from_numpy(rng.standard_normal((2, 128, 192, 5)).astype(np.float32)) for _ in range(2)]
@@ -819,7 +837,7 @@ def test_eemflow_plus_on_card_matches_cpu(cuda):
             got = model(*(e.to(cuda) for e in ev))[1][-1]
         delta = {k: launch_counts[k] - before[k] for k in launch_counts}
         assert delta["local_corr"] == 5
-        assert (delta["fused_convs_pool_simt"] > 0) == bool(kw)
+        assert delta["fused_convs_pool"] == (6 + 3 * chain_launches if kw else 0)
         assert float((got.cpu() - ref).abs().max()) <= tol, kw
 
 

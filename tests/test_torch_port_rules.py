@@ -155,12 +155,12 @@ def test_build_targets_sm90a_into_an_ignored_directory():
         assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
         for flag in ("-std=c++17", "-O3", "-c", "-fPIC", "-v"):
             assert flag in cmd
-    # one compile per source, all five kernels (K3 on the tensor cores and
-    # its SIMT version; K5's conv in one file per operand mode), linked once
-    # into out.so
+    # one compile per source, all five kernels (K3 on the tensor cores, one
+    # route for every chain; K5's conv in one file per operand mode), linked
+    # once into out.so
     assert [c[-1] for c in compiles] == build.source_paths()
     assert [os.path.basename(p) for p in build.source_paths()] == [
-        "voxel_scatter.cu", "local_corr.cu", "fused_convs.cu", "fused_convs_tc.cu", "coarse_head.cu",
+        "voxel_scatter.cu", "local_corr.cu", "fused_convs_tc.cu", "coarse_head.cu",
         "update_block.cu", "update_block_tf32.cu", "update_block_bf16.cu"]
     assert link[link.index("-o") + 1] == "out.so" and "-shared" in link
     assert [c[c.index("-o") + 1] for c in compiles] == [p for p in link if p.endswith(".o")]
