@@ -44,9 +44,11 @@ where it stopped:
      --fast_pyramid`` (the main path of K3 and K4); ERAFT (one sample,
      12 iterations) on the module path, then with ``--config
      {"fused_update": true}`` (the main path of K5, 24 launches, no input
-     copied into another layout) and with bf16 operands; the golden AEEs,
-     the agreement of the paths, and small forwards on the card against
-     the same forwards on the CPU; EEMFlow+ (golden checkpoint, one
+     copied into another layout) and with bf16 operands, then with
+     ``{"stacked_lookup": true}`` on the module path and with K5 (its AEE
+     within 1e-5 of the per-level lookup's); the golden AEEs, the agreement
+     of the paths, and small forwards on the card against the same
+     forwards on the CPU (RAFT's among them, seeded weights, 5 channels); EEMFlow+ (golden checkpoint, one
      sample) on the standard path and with ``--fast_pyramid
      --fast_decoders --fast_sgu`` (K2 five launches a forward, K3 the
      pyramid's 6 and the SGU's and the decoders' 9 chains in the launches
@@ -71,7 +73,12 @@ where it stopped:
      ``metrics.jsonl`` and a checkpoint each epoch; a ``-se 1`` resume
      that continues the step and the learning rate; one float32 train
      step at 128×256, B=2, on the card against the CPU (loss and every
-     gradient); 20 bf16 steps on one batch lowering its loss;
+     gradient); 20 bf16 steps on one batch lowering its loss; then EEMFlow+
+     (its config: 15 bins, bf16) and ERAFT the same way with
+     ``--full_res_flow``, at the largest batch of B=6 or below at which a
+     float32 step fits (printed with its peak memory), with their launch
+     counts (K1 two calls a step, K2 five launches for EEMFlow+ and none
+     for ERAFT, no K3, K4 or K5);
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
@@ -87,7 +94,9 @@ where it stopped:
      levels 1 and 2 timed again writing the pooled output alone); one
      720×1280 B=1 EEMFlow forward in the standard and the fused modes; one
      whole device-voxelize eval sample; the ERAFT forward at 720×1280 and
-     512×960, B=1, on the module path and with ``fused_update``; the
+     512×960, B=1, on the module path and with ``fused_update``, and at
+     720×1280 with the per-level and the stacked lookup in turns; RAFT's
+     720×1280 forward; the
      ``--fast`` candidates for EEMFlow (``siamese_stack``, ``fast_head`` +
      ``fast_pyramid``, all three); K3 on EEMFlow+'s 9 chains of one fused
      720×1280 forward (device after an L2 flush and warm, wrapper, float32
@@ -103,9 +112,11 @@ where it stopped:
      the device's busy share of the timed window); one
      720×1280 B=6 train step (device voxelize) in bf16 and float32, back to
      back, the device's busy time and share of one profiled run, and its
-     peak memory.
+     peak memory; the same for EEMFlow+ and ERAFT at their batch.
 
-Then one JSON line of the train step's times (``{"train_step": ...}``), one
+Then one JSON line of the train step's times (``{"train_step": ...}``:
+EEMFlow's under ``bf16`` and ``float32``, EEMFlow+'s and ERAFT's under
+their names with their ``batch``), one
 of every ported kernel (``ms`` is device time; for K1 ``voxel_scatter`` at
 2·10^5 events a frame, with ``voxelize_*`` and ``*_30k`` beside it; for K2
 the three levels of a B=1 forward, float32, ``bf16_*`` on bf16 operands
@@ -116,7 +127,8 @@ of its 9 chains in one fused forward, after an L2 flush; for
 K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
 the time per wrapper call back to back; ``standard_ms`` the device time of
 the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
-for K1 and K2), and as the last line ``{"ok": true, "device": {...}}``.
+for K1 and K2, ``launches_per_train_step_eemflow_plus`` and ``_eraft``
+beside it), and as the last line ``{"ok": true, "device": {...}}``.
 Any fault exits non-zero without the ``ok`` line, as does a machine
 without CUDA.  Synthetic data goes to a temporary directory outside the
 repository.  Parity phases run float32 convolutions and matmuls in full
@@ -1026,6 +1038,8 @@ def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
         ("module path", None),
         ("fused_update", {"fused_update": True}),
         ("fused_update bf16", {"fused_update": True, "fused_dtype": "bf16"}),
+        ("stacked lookup", {"stacked_lookup": True}),
+        ("fused_update, stacked lookup", {"fused_update": True, "stacked_lookup": True}),
     ):
         extra = []
         if cfg is not None:
@@ -1052,12 +1066,16 @@ def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
     require(abs(std - golden["aee"]) < GOLDEN_TOL, "ERAFT golden AEE drifted")
     require(abs(fused - std) < ERAFT_FUSED_TOL, "ERAFT's fused_update AEE differs from the module path")
     require(abs(bf16 - fused) < ERAFT_BF16_TOL, "ERAFT's bf16 fused_update AEE is off")
-    require(counts["module path"]["update_block"] == 0, "the module path launched K5")
-    for label in ("fused_update", "fused_update bf16"):
+    for label, base in (("stacked lookup", std), ("fused_update, stacked lookup", fused)):
+        say(f"ERAFT {label} vs the per-level lookup: AEE |Δ| {abs(aee[label] - base):.3e} (tolerance {STACKED_TOL:g})")
+        require(abs(aee[label] - base) <= STACKED_TOL, f"ERAFT's {label} AEE differs from the per-level lookup's")
+    require(counts["module path"]["update_block"] == counts["stacked lookup"]["update_block"] == 0,
+            "the module path launched K5")
+    for label in ("fused_update", "fused_update bf16", "fused_update, stacked lookup"):
         require(counts[label]["update_block_relayout"] == 0,
                 f"ERAFT {label} copied an input of K5 into another layout")
     # one sample, 12 iterations, two entry points each
-    for label in ("fused_update", "fused_update bf16"):
+    for label in ("fused_update", "fused_update bf16", "fused_update, stacked lookup"):
         require(counts[label]["update_block"] == 24, f"ERAFT {label} did not launch K5 24 times")
 
     sd = to_state_dict(load_torch_checkpoint(ERAFT_CKPT))
@@ -1075,6 +1093,21 @@ def phase_end_to_end_eraft(device: torch.device, tmp: str) -> dict:
             f"largest flow {float(ref.abs().max()):.3f}")
         require(bool(torch.isfinite(got).all()) and err <= FORWARD_TOL,
                 f"ERAFT {label} forward on the card disagrees with the CPU")
+    # RAFT (seeded weights, 5 input channels: the HREM bins) on the card
+    # against the CPU, its inputs scaled to the image range it normalises
+    torch.manual_seed(0)
+    model = get_eval_model("raft", n_first_channels=BINS)
+    x1, x2 = (torch.from_numpy(255 * (e - e.min()) / (e.max() - e.min())) for e in (ev1, ev2))
+    with torch.inference_mode():
+        _, ref = model(x1, x2)
+        model.to(device)
+        _, got = model(x1.to(device), x2.to(device))
+    err = float((got.cpu() - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    say(f"RAFT forward 64x96 (5 channels, seeded weights) card vs CPU: max|Δ| {err:.3e} (tolerance "
+        f"{FORWARD_TOL:g}·{scale:.2f})")
+    require(bool(torch.isfinite(got).all()) and err <= FORWARD_TOL * scale,
+            "RAFT's forward on the card disagrees with the CPU")
     return {"update_block": counts["fused_update"]["update_block"]}
 
 
@@ -1306,18 +1339,37 @@ TRAIN_STEPS, TRAIN_EPOCH = 4, 2  # --train_iters, --val_iters: two epochs, two c
 # in other summation orders through two pyramids and their backward)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
+# the two-volume models beyond EEMFlow, trained against the full-resolution
+# flow (--full_res_flow): config, voxel bins, K2 launches a step (EEMFlow+'s
+# five correlations; ERAFT's all-pairs volume is a matmul), and the
+# gradient's unit in the card-against-CPU step: each leaf's own largest
+# (EEMFlow+, as EEMFlow) or the model's largest (ERAFT, which normalises
+# before nearly every ReLU: a float32 rounding that flips one unit moves a
+# leaf by ~1% of its own largest; tests/test_torch_train_two_volume.py)
+TWO_VOLUME = {
+    "eemflow_plus": {"config": "hrem_eemflow_plus.json", "bins": 15, "k2": 5, "per_leaf": True},
+    "eraft": {"config": "hrem_meshflow.json", "bins": 5, "k2": 0, "per_leaf": False},
+}
+# batch sizes tried for them, the recipe's B=6 first (the largest that fits
+# a float32 step is used, and printed)
+TWO_VOLUME_BATCHES = (6, 4, 3, 2, 1)
+# the learning rate of their 20-step loss check: EEMFlow+'s config's
+TWO_VOLUME_LR = 1e-4
+# ERAFT's golden AEE with stacked_lookup against the per-level lookup (the
+# same function, the same sums and zeros added)
+STACKED_TOL = 1e-5
 
 
-def train_config(tmp: str, mixed_precision: bool) -> str:
-    """The default training config, or a copy of it with ``mixed_precision``
-    set otherwise."""
-    path = os.path.join(REPO, "configs", "hrem_meshflow.json")
+def train_config(tmp: str, mixed_precision: bool, name: str = "hrem_meshflow.json") -> str:
+    """A training config (the default one unless ``name``), or a copy of it
+    with ``mixed_precision`` set otherwise."""
+    path = os.path.join(REPO, "configs", name)
     with open(path) as f:
         cfg = json.load(f)
     if cfg["train"]["mixed_precision"] == mixed_precision:
         return path
     cfg["train"]["mixed_precision"] = mixed_precision
-    path = os.path.join(tmp, f"hrem_meshflow_mp{int(mixed_precision)}.json")
+    path = os.path.join(tmp, f"{name[:-5]}_mp{int(mixed_precision)}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
     return path
@@ -1386,29 +1438,31 @@ def phase_train(device: torch.device, tmp: str) -> dict:
             "local_corr_per_train_step": per_step["bf16 (default config)"][1]}
 
 
-def train_step_card_vs_cpu(device: torch.device) -> None:
+def train_step_card_vs_cpu(device: torch.device, name: str = "eemflow") -> None:
     """One float32 train step (device voxelize with flips, forward, loss,
     backward, clip, AdamW) from the same seeded parameters and batch at
     128x256, B=2: on the card (the kernels) and on the CPU (their plain
-    versions); the loss and every parameter's gradient compared."""
+    versions); the loss and every parameter's gradient compared.  EEMFlow
+    against the 16x16 meshflow label, the two-volume models against the
+    full-resolution flow."""
     from eemflow_tpu_torch.data.device_input import make_device_preprocess
     from eemflow_tpu_torch.kernels import launch_counts
-    from eemflow_tpu_torch.models.eemflow import EEMFlow
-    from eemflow_tpu_torch.train.optim import make_optimizer
-    from eemflow_tpu_torch.train.trainer import create_train_state, make_train_step
+    from eemflow_tpu_torch.train.trainer import make_train_step
 
     h, w, B, N = 128, 256, 2, 8192
+    spec = TWO_VOLUME.get(name, {"bins": BINS, "k2": 1, "per_leaf": True})
+    label = (16, 16) if name == "eemflow" else (h, w)
     ev, nv = k1_batch(np.random.default_rng(13), (N, N - 100, N - 7, N), N=N, h=h, w=w)
     rng = np.random.default_rng(14)
     batch = {
         "events_old": ev[:B], "events_new": ev[B:], "n_old": nv[:B], "n_new": nv[B:],
         "flip_h": np.array([True, False]), "flip_v": np.array([False, True]),
-        "flow": (rng.standard_normal((B, 16, 16, 2)) * 2).astype(np.float32),
-        "valid": np.ones((B, 16, 16), np.float32),
+        "flow": (rng.standard_normal((B, *label, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, *label), np.float32),
     }
     runs = {}
-    for dev in (torch.device("cpu"), device):
-        state = create_train_state(EEMFlow(out_mesh_size=True), 5, make_optimizer(1e-3, num_steps=100), device=dev)
+    for key, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        state = train_state(dev, seed=5, lr=1e-3, name=name, num_steps=100)
         grads = {}
         opt_step = state.opt.step
 
@@ -1418,56 +1472,171 @@ def train_step_card_vs_cpu(device: torch.device) -> None:
 
         state.opt.step = step_recording_grads
         before = dict(launch_counts)
-        _, metrics = make_train_step(preprocess=make_device_preprocess(BINS, h, w))(
+        _, metrics = make_train_step(preprocess=make_device_preprocess(spec["bins"], h, w))(
             state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
-        runs[dev.type] = (float(metrics["loss"]), grads,
-                          (launch_counts["voxel_scatter"] - before["voxel_scatter"],
-                           launch_counts["local_corr"] - before["local_corr"]))
-    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs["cuda"]
-    worst = max(float((g_gpu[n] - g).abs().max()) / float(g.abs().max()) for n, g in g_cpu.items())
-    say(f"one float32 train step at {h}x{w} B={B}, card (K1 calls, K2 launches {n_gpu}) vs CPU (plain versions, "
-        f"{n_cpu}): loss {loss_gpu:.7f} vs {loss_cpu:.7f} (|Δ| relative {abs(loss_gpu - loss_cpu) / loss_cpu:.3e}, "
-        f"tolerance {TRAIN_LOSS_RTOL:g}); grads: the worst parameter's max|Δ| is {worst:.3e} of its largest |g| "
-        f"(tolerance {TRAIN_GRAD_TOL:g})")
-    require(n_gpu == (2, 1) and n_cpu == (0, 0), "the card's train step did not run K1 twice and K2 once")
+        runs[key] = (float(metrics["loss"]), grads,
+                     (launch_counts["voxel_scatter"] - before["voxel_scatter"],
+                      launch_counts["local_corr"] - before["local_corr"]))
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs["card"]
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    unit = (lambda g: float(g.abs().max())) if spec["per_leaf"] else (lambda g: top)
+    worst = max(float((g_gpu[n] - g).abs().max()) / unit(g) for n, g in g_cpu.items())
+    unit_name = "its" if spec["per_leaf"] else "the model's"
+    whole = float(torch.cat([(g_gpu[n] - g).flatten() for n, g in g_cpu.items()]).norm()
+                  / torch.cat([g.flatten() for g in g_cpu.values()]).norm())
+    say(f"one float32 {name} train step at {h}x{w} B={B}, card (K1 calls, K2 launches {n_gpu}) vs CPU (plain "
+        f"versions, {n_cpu}): loss {loss_gpu:.7f} vs {loss_cpu:.7f} (|Δ| relative "
+        f"{abs(loss_gpu - loss_cpu) / loss_cpu:.3e}, tolerance {TRAIN_LOSS_RTOL:g}); grads: the worst parameter's "
+        f"max|Δ| is {worst:.3e} of {unit_name} largest |g| (tolerance "
+        f"{TRAIN_GRAD_TOL:g}); the whole gradient {whole:.3e} relative L2")
+    require(n_gpu == (2, spec["k2"]) and n_cpu == (0, 0),
+            f"the card's {name} train step did not run K1 twice and K2 {spec['k2']} times")
     require(np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
-            and worst <= TRAIN_GRAD_TOL, "the train step on the card disagrees with the CPU")
+            and worst <= TRAIN_GRAD_TOL and whole <= TRAIN_GRAD_TOL,
+            f"the {name} train step on the card disagrees with the CPU")
 
 
-def train_batch(root: str, device: torch.device, seed: int = 0) -> dict:
-    """One B=6 raw-event batch of the synthetic train split (flips drawn
-    from ``seed``), on the card."""
+def train_batch(root: str, device: torch.device, seed: int = 0, batch: int = TRAIN_BATCH,
+                full_res_flow: bool = False) -> dict:
+    """One raw-event batch of the synthetic train split (flips drawn from
+    ``seed``; the meshflow label, or the full-resolution flow), on the card."""
     from eemflow_tpu_torch.data.hrem import HREMEventFlow
     from eemflow_tpu_torch.data.loader import collate
     from eemflow_tpu_torch.train.trainer import batch_to_device
 
-    ds = HREMEventFlow(root, train=True, raw_events=True, bucket_rungs=4,
+    ds = HREMEventFlow(root, train=True, raw_events=True, bucket_rungs=4, full_res_flow=full_res_flow,
                        aug_params={"crop_size": [512, 960], "do_flip": True}, rng=np.random.default_rng(seed))
-    return batch_to_device(collate([ds[i] for i in range(TRAIN_BATCH)]), device)
+    return batch_to_device(collate([ds[i % len(ds)] for i in range(batch)]), device)
 
 
-def train_state(device: torch.device, seed: int = 0, lr: float = 1e-4):
+def train_state(device: torch.device, seed: int = 0, lr: float = 1e-4, name: str = "eemflow", num_steps: int = 1000):
+    """A fresh train state: EEMFlow at the meshflow label's 16x16, the
+    two-volume models at full resolution with their bins."""
     from eemflow_tpu_torch.models.registry import get_model
     from eemflow_tpu_torch.train.optim import make_optimizer
     from eemflow_tpu_torch.train.trainer import create_train_state
 
-    return create_train_state(get_model("eemflow", out_mesh_size=True), seed,
-                              make_optimizer(lr, num_steps=1000), device=device)
+    kw = {"out_mesh_size": True} if name == "eemflow" else {"n_first_channels": TWO_VOLUME[name]["bins"]}
+    return create_train_state(get_model(name, **kw), seed, make_optimizer(lr, num_steps=num_steps), device=device)
 
 
-def train_steps_lower_the_loss(device: torch.device, root: str) -> None:
-    """20 bf16 steps (the default mixed precision) on one fixed 720x1280 B=6
+def train_steps_lower_the_loss(device: torch.device, root: str, name: str = "eemflow",
+                               batch: int = TRAIN_BATCH, lr: float = 1e-3) -> None:
+    """20 bf16 steps (the default mixed precision) on one fixed 720x1280
     batch lower its loss."""
     from eemflow_tpu_torch.data.device_input import make_device_preprocess
     from eemflow_tpu_torch.train.trainer import make_train_step
 
-    batch = train_batch(root, device)
-    state = train_state(device, lr=1e-3)
-    step = make_train_step(preprocess=make_device_preprocess(BINS, H, W), mixed_precision=True)
-    losses = [float(step(state, batch)[1]["loss"]) for _ in range(20)]
-    say(f"20 bf16 steps on one 720x1280 B={TRAIN_BATCH} batch: loss {losses[0]:.6f} → {losses[-1]:.6f} "
-        f"(every 5th: {[round(x, 6) for x in losses[::5]]})")
-    require(all(np.isfinite(losses)) and losses[-1] < losses[0], "20 steps on one batch did not lower its loss")
+    bins = TWO_VOLUME[name]["bins"] if name in TWO_VOLUME else BINS
+    data = train_batch(root, device, batch=batch, full_res_flow=name != "eemflow")
+    state = train_state(device, lr=lr, name=name)
+    step = make_train_step(preprocess=make_device_preprocess(bins, H, W), mixed_precision=True)
+    losses = [float(step(state, data)[1]["loss"]) for _ in range(20)]
+    say(f"20 bf16 {name} steps (lr {lr:g}) on one 720x1280 B={batch} batch: loss {losses[0]:.6f} → "
+        f"{losses[-1]:.6f} (every 5th: {[round(x, 6) for x in losses[::5]]})")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0], f"20 {name} steps on one batch did not lower its loss")
+
+
+def largest_batch(device: torch.device, root: str, name: str) -> tuple:
+    """The largest of ``TWO_VOLUME_BATCHES`` at which one float32 train step
+    of ``name`` at 720x1280 (device voxelize, full-resolution flow) fits on
+    the card, and that step's peak allocated bytes."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.train.trainer import make_train_step
+
+    def attempt(b):
+        data = train_batch(root, device, batch=b, full_res_flow=True)
+        state = train_state(device, name=name)
+        step = make_train_step(preprocess=make_device_preprocess(TWO_VOLUME[name]["bins"], H, W))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        step(state, data)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(device)
+
+    for b in TWO_VOLUME_BATCHES:
+        try:
+            peak = attempt(b)
+        except torch.cuda.OutOfMemoryError as e:
+            say(f"{name}: a float32 train step at 720x1280 B={b} does not fit the card ({str(e).splitlines()[0]})")
+            peak = None
+        torch.cuda.empty_cache()
+        if peak is not None:
+            say(f"{name}: a float32 train step at 720x1280 B={b} fits, peak allocated {peak / 2**30:.3f} GiB of "
+                f"{torch.cuda.get_device_properties(device).total_memory / 2**30:.1f}")
+            return b, peak
+    raise SmokeFailure(f"{name}: no float32 train step at 720x1280 fits the card, down to B=1")
+
+
+def phase_train_two_volume(device: torch.device, tmp: str) -> dict:
+    """EEMFlow+ (its config: 15 bins, bf16) and ERAFT through the training
+    CLI with ``--full_res_flow --device_voxelize`` on phase 3b's train split,
+    at the largest batch of the recipe's B=6 or below that fits, in bf16 and
+    float32: each run's launch counts set to 0 just before it and read just
+    after (K1 two calls a step, K2 EEMFlow+'s five correlations, no K3, K4
+    or K5), finite losses and two checkpoints, the bf16 run resumed with
+    ``-se 1``; then one float32 step on the card against the CPU and 20
+    bf16 steps on one batch."""
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.tools.train_hrem import main as train_hrem
+
+    phase("3b train: EEMFlow+ and ERAFT through the HREM training CLI at 720x1280, --full_res_flow, "
+          "device voxelize")
+    root = os.path.join(tmp, "hrem_train")
+    out = {}
+    for name, spec in TWO_VOLUME.items():
+        batch, peak = largest_batch(device, root, name)
+        common = ["-model", name, "--full_res_flow", "--data_root", root, "-bs", str(batch), "--device_voxelize",
+                  "--train_iters", str(TRAIN_STEPS), "--val_iters", str(TRAIN_EPOCH), "--device", str(device)]
+        for label, mp in (("bf16", True), ("float32", False)):
+            save = os.path.join(tmp, f"train_{name}_{int(mp)}")
+            args = common + ["--config", train_config(tmp, mp, spec["config"]), "--save_dir", save]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state = train_hrem(args)
+            counts = dict(launch_counts)
+            run = os.path.join(save, f"{name}_dt1_lr1e-05_wd0.0")
+            recs = read_jsonl(os.path.join(run, "metrics.jsonl"))
+            ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+            first = next(state.model.parameters())
+            say(f"train CLI {name} {label} B={batch}: {TRAIN_STEPS} steps in {time.perf_counter() - t0:.1f} s; step "
+                f"{state.step}, next lr {state.opt.lr:.6e}; epochs "
+                f"{[(r['epoch'], r['n_steps'], r['mean_loss']) for r in recs]}; checkpoints {ckpts}; first conv "
+                f"{tuple(first.shape)}; launches {counts}")
+            require(state.step == TRAIN_STEPS and ckpts == ["epoch_1.pt", "epoch_2.pt"]
+                    and [r["kind"] for r in recs] == ["epoch", "epoch"]
+                    and all(np.isfinite(r["mean_loss"]) and np.isfinite(r["mean_aee"]) for r in recs),
+                    f"the {name} {label} training run did not take its steps, log finite losses and checkpoint "
+                    "each epoch")
+            require(first.shape[1] == spec["bins"], f"{name}'s first conv does not take the config's {spec['bins']} bins")
+            require(all(p.dtype == torch.float32 and bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+                    f"the {name} {label} run's master parameters are not finite float32")
+            require(counts["voxel_scatter"] == 2 * TRAIN_STEPS and counts["local_corr"] == spec["k2"] * TRAIN_STEPS
+                    and counts["fused_convs_pool"] == counts["coarse_head"] == counts["update_block"] == 0,
+                    f"{name} {label}: launches {counts} in {TRAIN_STEPS} steps, not K1 2 and K2 {spec['k2']} a step "
+                    "and no K3, K4 or K5")
+            if mp:
+                reset_launch_counts()
+                resumed = train_hrem(args + ["-se", "1"])
+                with open(os.path.join(run, "log.txt")) as f:
+                    log = f.read()
+                say(f"train CLI {name} {label} resumed with -se 1: step {resumed.step}, next lr "
+                    f"{resumed.opt.lr:.6e}, schedule step {resumed.opt.scheduler.last_epoch} (the uninterrupted "
+                    f"run: {state.step}, {state.opt.lr:.6e}, {state.opt.scheduler.last_epoch}); launches "
+                    f"{dict(launch_counts)}")
+                require("resumed from epoch 1" in log and resumed.step == state.step
+                        and resumed.opt.lr == state.opt.lr
+                        and resumed.opt.scheduler.last_epoch == state.opt.scheduler.last_epoch,
+                        f"the resumed {name} run's step and learning rate do not continue the uninterrupted run's")
+                del resumed
+            del state
+            torch.cuda.empty_cache()
+        train_step_card_vs_cpu(device, name)
+        train_steps_lower_the_loss(device, root, name, batch, lr=TWO_VOLUME_LR)
+        torch.cuda.empty_cache()
+        out[name] = {"batch": batch, "float32_peak_gib": peak / 2**30, "voxel_scatter_per_train_step": 2,
+                     "local_corr_per_train_step": spec["k2"]}
+    return out
 
 
 def profiled_step(fn, reps: int, tmp: str) -> dict:
@@ -1501,39 +1670,50 @@ def profiled_step(fn, reps: int, tmp: str) -> dict:
             "device_ops": sum(e.count for e in ops) / reps}
 
 
-def times_train(device: torch.device, tmp: str) -> dict:
-    """One train step at 720x1280, B=6, device voxelize (K1 ×2, forward with
-    one K2 launch, loss, backward, clip, AdamW), in bf16 and float32: back
-    to back (CUDA events), its device busy time and share in one profiled
-    run (a step launches more kernels than the launch queue holds, so it
-    cannot be queued behind a sleep), and its peak allocated memory."""
+def times_train(device: torch.device, tmp: str, two_volume: dict) -> dict:
+    """One train step at 720x1280, device voxelize (K1 ×2, forward, loss,
+    backward, clip, AdamW), in bf16 and float32: EEMFlow at B=6 (one K2
+    launch), and EEMFlow+ (K2 ×5) and ERAFT at the batch phase 3b fitted,
+    against the full-resolution flow; back to back (CUDA events), its device
+    busy time and share in one profiled run (a step launches more kernels
+    than the launch queue holds, so it cannot be queued behind a sleep), and
+    its peak allocated memory."""
     from eemflow_tpu_torch.data.device_input import make_device_preprocess
     from eemflow_tpu_torch.train.trainer import make_train_step
 
-    batch = train_batch(os.path.join(tmp, "hrem_train"), device)
+    root = os.path.join(tmp, "hrem_train")
     out = {}
-    for label, mp in (("bf16", True), ("float32", False)):
-        state = train_state(device)
-        step = make_train_step(preprocess=make_device_preprocess(BINS, H, W), mixed_precision=mp)
-        run = lambda: step(state, batch)
-        for _ in range(3):
+    models = [("eemflow", TRAIN_BATCH, 10, 5)] + [(n, info["batch"], 5, 3) for n, info in two_volume.items()]
+    for name, batch_size, reps, prof_reps in models:
+        bins = TWO_VOLUME[name]["bins"] if name in TWO_VOLUME else BINS
+        batch = train_batch(root, device, batch=batch_size, full_res_flow=name != "eemflow")
+        times = {"batch": batch_size} if name != "eemflow" else out
+        for label, mp in (("bf16", True), ("float32", False)):
+            state = train_state(device, name=name)
+            step = make_train_step(preprocess=make_device_preprocess(bins, H, W), mixed_precision=mp)
+            run = lambda: step(state, batch)
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
             run()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        run()
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(device)
-        b2b = cuda_ms(run, reps=10, warmup=1)
-        prof = profiled_step(run, reps=5, tmp=tmp)
-        say(f"train step 720x1280 B={TRAIN_BATCH} device voxelize, {label}: {b2b:.3f} ms back to back "
-            f"({TRAIN_BATCH * 1e3 / b2b:.1f} samples/s); under torch.profiler {prof['profiled_ms']:.3f} ms a "
-            f"step, the device busy {prof['busy_ms']:.3f} ms of it ({100 * prof['busy_share']:.1f}%, the union "
-            f"of {prof['device_ops']:.0f} kernels and copies a step); peak allocated {peak / 2**30:.3f} GiB")
-        out[label] = {"ms": b2b, "peak_gib": peak / 2**30, **prof}
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            b2b = cuda_ms(run, reps=reps, warmup=1)
+            prof = profiled_step(run, reps=prof_reps, tmp=tmp)
+            say(f"train step {name} 720x1280 B={batch_size} device voxelize, {label}: {b2b:.3f} ms back to back "
+                f"({batch_size * 1e3 / b2b:.1f} samples/s); under torch.profiler {prof['profiled_ms']:.3f} ms a "
+                f"step, the device busy {prof['busy_ms']:.3f} ms of it ({100 * prof['busy_share']:.1f}%, the union "
+                f"of {prof['device_ops']:.0f} kernels and copies a step); peak allocated {peak / 2**30:.3f} GiB")
+            times[label] = {"ms": b2b, "peak_gib": peak / 2**30, **prof}
+            del state, step, run
+            torch.cuda.empty_cache()
+        if name != "eemflow":
+            out[name] = times
     return out
 
 
-def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> tuple:
+def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict, two_volume: dict) -> tuple:
     from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
     from eemflow_tpu_torch.models.registry import get_eval_model
 
@@ -1555,7 +1735,11 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict) -> t
     times_fast_candidates(device, sd, x1, x2)
     plus_row = times_plus(device, tmp, errs, launches)
     times_serve(device, tmp)
-    train = times_train(device, tmp)
+    train = times_train(device, tmp, two_volume)
+    # a two-volume train step's launches (phase 3b's counts)
+    for row, key in ((k1_row, "voxel_scatter_per_train_step"), (k2_row, "local_corr_per_train_step")):
+        for name, info in two_volume.items():
+            row[f"launches_per_train_step_{name}"] = info[key]
     return [k1_row, k2_row, k3_row, plus_row, k4_row, k5_row], train
 
 
@@ -2199,33 +2383,61 @@ def k5_conv_times(pair, pixels: int, kind: str) -> None:
 
 def times_eraft(device) -> None:
     """The ERAFT eval forward (golden weights, 12 iterations, the mask head
-    once) at 720x1280 and 512x960, B=1: module path against K5."""
+    once) at 720x1280 and 512x960, B=1: module path against K5, and at
+    720x1280 the per-level lookup against the stacked one in turns
+    (per-level, stacked, stacked, per-level); then RAFT's 720x1280 forward
+    (seeded weights, 5 channels)."""
     from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
     from eemflow_tpu_torch.models.registry import get_eval_model
 
     sd = to_state_dict(load_torch_checkpoint(ERAFT_CKPT))
     models = {}
     for label, kw in (("module path", {}), ("fused_update", {"fused_update": True}),
-                      ("fused_update bf16", {"fused_update": True, "fused_dtype": "bf16"})):
+                      ("fused_update bf16", {"fused_update": True, "fused_dtype": "bf16"}),
+                      ("stacked lookup", {"stacked_lookup": True}),
+                      ("fused_update, stacked lookup", {"fused_update": True, "stacked_lookup": True})):
         models[label] = get_eval_model("eraft", **kw)
         models[label].load_state_dict(sd)
         models[label].to(device)
+
+    def forward(m, x1, x2):
+        with torch.inference_mode():
+            return m(x1, x2)[1][-1]
+
     for h, w in ((720, 1280), (512, 960)):
         x1, x2 = (torch.randn(1, h, w, BINS, device=device) for _ in range(2))
         flows = {}
         for label, m in models.items():
-            def forward(m=m):
-                with torch.inference_mode():
-                    return m(x1, x2)[1][-1]
-
-            flows[label] = flow = forward()
+            if "stacked" in label and h != 720:
+                continue
+            flows[label] = flow = forward(m, x1, x2)
             require(tuple(flow.shape) == (1, h, w, 2) and bool(torch.isfinite(flow).all()),
                     f"ERAFT {h}x{w} {label} forward is not finite or has the wrong shape")
-            ms = cuda_ms(forward, reps=5, warmup=2)
+            ms = cuda_ms(lambda m=m: forward(m, x1, x2), reps=5, warmup=2)
             say(f"ERAFT forward {h}x{w} B=1, {label}: {ms:.3f} ms per call back to back "
                 f"({1e3 / ms:.1f} fps)")
         err = float((flows["fused_update"] - flows["module path"]).abs().max())
         say(f"ERAFT {h}x{w} fused_update vs module path forward: max|Δ| {err:.3e}")
+        if h != 720:
+            continue
+        for base, stacked in (("module path", "stacked lookup"), ("fused_update", "fused_update, stacked lookup")):
+            turns = [cuda_ms(lambda m=models[label]: forward(m, x1, x2), reps=5, warmup=1)
+                     for label in (base, stacked, stacked, base)]
+            err = float((flows[stacked] - flows[base]).abs().max())
+            say(f"ERAFT forward 720x1280 B=1, {base}: per-level lookup {turns[0]:.3f} / {turns[3]:.3f} ms against "
+                f"the stacked lookup {turns[1]:.3f} / {turns[2]:.3f} ms back to back, in turns; flows max|Δ| "
+                f"{err:.3e}")
+    x1, x2 = (torch.randn(1, 720, 1280, BINS, device=device) for _ in range(2))
+    del models
+    torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    raft = get_eval_model("raft", n_first_channels=BINS).to(device)
+    flow = forward(raft, 255 * x1.sigmoid(), 255 * x2.sigmoid())
+    require(tuple(flow.shape) == (1, 720, 1280, 2) and bool(torch.isfinite(flow).all()),
+            "RAFT's 720x1280 forward is not finite or has the wrong shape")
+    ms = cuda_ms(lambda: forward(raft, 255 * x1.sigmoid(), 255 * x2.sigmoid()), reps=5, warmup=2)
+    say(f"RAFT forward 720x1280 B=1 (seeded weights, 5 channels, 12 iterations): {ms:.3f} ms per call back to back "
+        f"({1e3 / ms:.1f} fps)")
 
 
 def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
@@ -2449,7 +2661,8 @@ def run(device: torch.device) -> dict:
         errs = phase_parity(device)
         launches = phase_end_to_end(device, tmp)
         launches.update(phase_train(device, tmp))
-        kernels, train = phase_times(device, tmp, errs, launches)
+        two_volume = phase_train_two_volume(device, tmp)
+        kernels, train = phase_times(device, tmp, errs, launches, two_volume)
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"train_step": train}))
     say(json.dumps({"kernels": kernels}))

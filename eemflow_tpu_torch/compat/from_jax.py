@@ -1,4 +1,4 @@
-"""Carry JAX EEMFlow, EEMFlow+ and ERAFT params across to the port.
+"""Carry JAX EEMFlow, EEMFlow+, ERAFT and RAFT variables across to the port.
 
 The inverse of ``torch_state_dict_to_flax`` with ``eemflow_alias``
 (``eemflow_tpu/compat/torch_loader.py:57-133``): a nested dict of numpy
@@ -12,7 +12,8 @@ becomes the port's flat ``state_dict``:
     keep the pyramid convs at the model's top level.
 
 The correlation ``index`` buffer is not a JAX param; it is added from
-``indices`` so that the result loads strictly.
+``indices`` so that the result loads strictly.  The RAFT lineage also
+carries flax's ``batch_stats`` into the BatchNorm buffers.
 """
 
 from __future__ import annotations
@@ -96,6 +97,10 @@ def eraft_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 if path[-1] == "mean":
                     sd[f"{m}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return sd
+
+
+# RAFT's JAX modules have ERAFT's names (fnet, cnet, update_block)
+raft_state_dict_from_jax = eraft_state_dict_from_jax
 
 
 def _eemflow_plus_torch_path(path) -> str:

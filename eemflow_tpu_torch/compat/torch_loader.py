@@ -8,7 +8,8 @@ key carries a ``module.`` prefix; the port's own training checkpoints
 The port's modules use the reference's attribute names and NCHW layout,
 so after unwrapping and stripping, and dropping the keys a family's
 forward never reads (EEMFlow+'s ``EEMFLOW_PLUS_DROP``), the dict loads
-with ``load_state_dict`` strictly.  ``load_model_checkpoint`` is that
+with ``load_state_dict`` strictly.  RAFT takes ERAFT's layout, as the JAX
+``convert_for_model`` gives every model it does not list.  ``load_model_checkpoint`` is that
 path, shared by the CLIs (``test_hrem``, ``serve``, ``time_eval``).
 """
 

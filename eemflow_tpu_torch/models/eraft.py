@@ -25,11 +25,20 @@ conv operands to bf16.  The JAX package runs its fused kernels only when
 720×1280 (a 92-row grid) it always does; here K5 runs whenever
 ``fused_update`` is set and the model is not training, and with
 ``upsample_all=True`` the mask head runs after it in every iteration.
-The module path and K5 compute the same function.  K5's weights are built
+The module path and K5 compute the same function.  ``stacked_lookup=True``
+stacks the correlation levels once, before the iterations, and looks all
+of them up in one gather an iteration (``ops/corr_block.lookup_corr_stack``;
+the same function, fewer operations for the host to issue), on either
+path, in eval and in training.  K5's weights are built
 once per dtype and model placement (``FusedUpdate``: its kernel layout
 follows in-place edits of the parameters).  On the CPU its plain version
 gives the module path's gradients; on the card K5 refuses to run under
 grad while a parameter requires it.
+
+The context encoder's BatchNorm normalises with the batch's statistics and
+updates its running ones in training mode (``model.train()``, the JAX
+``train=True``) and uses the running ones in eval mode
+(``models/raft_core.BatchNorm``).
 """
 
 from __future__ import annotations
@@ -41,7 +50,9 @@ import torch.nn as nn
 
 from eemflow_tpu_torch.kernels import COMPUTE_DTYPES
 from eemflow_tpu_torch.models.raft_core import BasicEncoder, BasicUpdateBlock
-from eemflow_tpu_torch.ops.corr_block import build_corr_pyramid, lookup_corr_pyramid
+from eemflow_tpu_torch.ops.corr_block import (
+    build_corr_pyramid, build_corr_stack, lookup_corr_pyramid, lookup_corr_stack,
+)
 from eemflow_tpu_torch.ops.pad import InputPadder
 from eemflow_tpu_torch.ops.update_block import FusedUpdate, make_fused_update
 from eemflow_tpu_torch.ops.upsample import convex_upsample_flow
@@ -75,8 +86,6 @@ class ERAFT(nn.Module):
         siamese_stack: bool = False,
     ):
         super().__init__()
-        if stacked_lookup:
-            raise NotImplementedError("ERAFT: stacked_lookup is not ported yet")
         if fused_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"fused_dtype must be one of {sorted(COMPUTE_DTYPES)}")
         self.iters = iters
@@ -87,6 +96,7 @@ class ERAFT(nn.Module):
         self.pad_rate = pad_rate
         self.upsample_all = upsample_all
         self.corr_fast = corr_fast
+        self.stacked_lookup = stacked_lookup
         self.fused_update = fused_update
         self.fused_dtype = fused_dtype
         self.siamese_stack = siamese_stack
@@ -139,18 +149,25 @@ class ERAFT(nn.Module):
             fused = self._fused[dtype]
         flows = raft_refine(
             self.update_block, pyramid, net, inp, coords0, coords1, n_iters,
-            self.corr_radius, upsample_all=self.upsample_all, fused_apply=fused,
+            self.corr_radius, upsample_all=self.upsample_all,
+            stacked_lookup=self.stacked_lookup, fused_apply=fused,
         )
         return (events1, events2), padder.unpad(flows)
 
 
 def raft_refine(update_block, pyramid, net, inp, coords0, coords1, n_iters, radius,
-                upsample_all: bool = True, fused_apply=None) -> torch.Tensor:
+                upsample_all: bool = True, stacked_lookup: bool = False, fused_apply=None) -> torch.Tensor:
     """The RAFT refinement loop (a Python loop over the iterations).  net and
     inp are NCHW, coords NHWC.  Returns the upsampled predictions
     [iters, B, 8h, 8w, 2], or [1, ...] of the final iterate when
-    ``upsample_all=False``.  ``fused_apply(net, inp, corr, flow)`` (NHWC)
-    replaces the update block without its mask head."""
+    ``upsample_all=False``.  ``stacked_lookup``: the level stack is built
+    here, once, and every iteration looks it up.  ``fused_apply(net, inp,
+    corr, flow)`` (NHWC) replaces the update block without its mask head."""
+    if stacked_lookup:
+        stack, shapes = build_corr_stack(pyramid)
+        lookup = lambda c: lookup_corr_stack(stack, shapes, c, radius)
+    else:
+        lookup = lambda c: lookup_corr_pyramid(pyramid, c, radius)
     preds = []
     if fused_apply is not None:
         # NHWC for K5, converted once outside the loop
@@ -158,8 +175,10 @@ def raft_refine(update_block, pyramid, net, inp, coords0, coords1, n_iters, radi
         inp = inp.permute(0, 2, 3, 1).contiguous()
     for _ in range(n_iters):
         coords1 = coords1.detach()
-        corr = lookup_corr_pyramid(pyramid, coords1, radius)
-        flow = coords1 - coords0
+        # the lookup is float32; the update block runs at the carry's dtype
+        # (bf16 under mixed precision), the coordinates stay float32
+        corr = lookup(coords1).to(net.dtype)
+        flow = (coords1 - coords0).to(net.dtype)
         if fused_apply is not None:
             net, delta = fused_apply(net, inp, corr, flow)
             up_mask = None
@@ -172,7 +191,7 @@ def raft_refine(update_block, pyramid, net, inp, coords0, coords1, n_iters, radi
             delta = delta.permute(0, 2, 3, 1)
             if up_mask is not None:
                 up_mask = up_mask.permute(0, 2, 3, 1)
-        coords1 = coords1 + delta
+        coords1 = coords1 + delta.to(coords1.dtype)
         if upsample_all:
             preds.append(convex_upsample_flow(coords1 - coords0, up_mask))
     if not upsample_all:
@@ -180,3 +199,4 @@ def raft_refine(update_block, pyramid, net, inp, coords0, coords1, n_iters, radi
         up_mask = update_block.upsample_mask(final).permute(0, 2, 3, 1)
         preds.append(convex_upsample_flow(coords1 - coords0, up_mask))
     return torch.stack(preds, dim=0)
+

@@ -13,8 +13,8 @@ Attribute names are the reference's, so a released checkpoint loads with a
 strict ``load_state_dict``: a strided block's ``downsample`` is a
 ``Sequential`` of its 1×1 conv and ``norm3``, and ``norm3`` is also
 registered on its own, so both key spellings appear; the mask head is the
-``Sequential`` ``mask`` (keys ``mask.0``, ``mask.2``).  BatchNorm keeps
-torch's momentum 0.1, which is the JAX package's 0.9.
+``Sequential`` ``mask`` (keys ``mask.0``, ``mask.2``).  ``BatchNorm`` is flax's ``nn.BatchNorm`` as
+the JAX package trains it (see the class).
 """
 
 from __future__ import annotations
@@ -28,12 +28,43 @@ import torch.nn.functional as F
 from eemflow_tpu_torch.models.layers import InstanceNorm
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` (JAX
+    ``raft_core.make_norm``) with torch's parameter and buffer names.
+
+    In training mode (``model.train()``, as the JAX ``train=True``) the
+    batch's statistics normalise, and the running ones move a tenth of the
+    way to the batch's mean and *biased* variance; torch's ``BatchNorm2d``
+    would take the unbiased one.  Statistics and normalisation are float32
+    whatever the input's dtype, and the result is cast back to it: flax
+    promotes a bf16 input and bf16 scale and bias to float32 alike, and the
+    running statistics stay float32.  In eval mode the running statistics
+    normalise, in float32 likewise."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x32, dim=(0, 2, 3), correction=0)
+                self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+                self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
+            stats = (None, None)
+        else:
+            stats = (self.running_mean, self.running_var)
+        y = F.batch_norm(x32, *stats, self.weight.float(), self.bias.float(), self.training, 0.0, self.eps)
+        return y.to(x.dtype)
+
+
 def make_norm(norm_fn: str, channels: int) -> nn.Module:
     """The requested norm over ``channels`` (``nn.Sequential()`` for none)."""
     if norm_fn == "group":
         return nn.GroupNorm(channels // 8, channels, eps=1e-5)
     if norm_fn == "batch":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm(channels)
     if norm_fn == "instance":
         return InstanceNorm(channels)
     if norm_fn == "none":
@@ -73,7 +104,11 @@ class BasicEncoder(nn.Module):
         self.layer2 = nn.Sequential(ResidualBlock(64, 96, norm_fn, 2), ResidualBlock(96, 96, norm_fn))
         self.layer3 = nn.Sequential(ResidualBlock(96, 128, norm_fn, 2), ResidualBlock(128, 128, norm_fn))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
-        # the reference's init (model/extractor.py)
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        """The reference's init (``model/extractor.py``): He-normal convs
+        (fan out), norms at scale 1 and bias 0."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu")

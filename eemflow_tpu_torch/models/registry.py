@@ -1,6 +1,6 @@
 """Model registry of the port (counterpart of
-``eemflow_tpu/models/registry.py:32-100``): ``eemflow``, ``eemflow_plus``
-and ``eraft``, so far."""
+``eemflow_tpu/models/registry.py:32-100``): ``eemflow``, ``eemflow_plus``,
+``eraft`` and ``raft``, so far."""
 
 from __future__ import annotations
 
@@ -9,10 +9,12 @@ import inspect
 from eemflow_tpu_torch.models.eemflow import EEMFlow
 from eemflow_tpu_torch.models.eemflow_plus import EEMFlowPlus
 from eemflow_tpu_torch.models.eraft import ERAFT
+from eemflow_tpu_torch.models.raft import RAFT
 
-MODEL_REGISTRY = {"eemflow": EEMFlow, "eemflow_plus": EEMFlowPlus, "eraft": ERAFT}
+MODEL_REGISTRY = {"eemflow": EEMFlow, "eemflow_plus": EEMFlowPlus, "eraft": ERAFT, "raft": RAFT}
 
-# reference CLI spellings (train_EEMFlow_HREM.py:30-55) → registry names
+# reference CLI spellings (train_EEMFlow_HREM.py:30-55) → registry names, the
+# JAX registry's for the models registered here
 ALIASES = {"EEMFlow": "eemflow"}
 
 # parity-safe serving modes per family (same params, the same function in

@@ -68,7 +68,8 @@ def _index_tensor(wanted: tuple, device: torch.device) -> torch.Tensor:
     key = (wanted, device)
     t = _index_tensors.get(key)
     if t is None:
-        t = _index_tensors[key] = torch.tensor(wanted, device=device)
+        with torch.inference_mode(False):  # a normal tensor, which training may save
+            t = _index_tensors[key] = torch.tensor(wanted, device=device)
     return t
 
 

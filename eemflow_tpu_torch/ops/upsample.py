@@ -1,6 +1,6 @@
-"""Bilinear resizing, EEMFlow's and EEMFlow+'s flow upsamplers and RAFT's
-convex upsampler (counterpart of ``eemflow_tpu/ops/upsample.py:25-81,
-84-109``), NHWC in and out.
+"""Bilinear resizing, EEMFlow's and EEMFlow+'s flow upsamplers, ``upflow8``
+and RAFT's convex upsampler (counterpart of ``eemflow_tpu/ops/upsample.py:
+25-109``), NHWC in and out.
 
 align_corners=False is torch ``F.interpolate``'s own convention
 (src = (dst+0.5)·in/out − 0.5, clamped at 0), which the JAX package
@@ -14,21 +14,32 @@ import torch.nn.functional as F
 
 
 def resize_bilinear(x: torch.Tensor, size, align_corners: bool = False) -> torch.Tensor:
-    """Resize an NHWC tensor to (H, W) = size with torch bilinear numerics."""
+    """Resize an NHWC tensor to (H, W) = size with torch bilinear numerics.
+    A bf16 input is interpolated in float32 and the result rounded once:
+    the card's backward of a bf16 interpolation adds each output's gradient
+    into its source cells with bf16 atomics, and upsampling EEMFlow+'s
+    coarsest flow 64× gathers thousands of them a cell (a bf16 train step's
+    gradient 28% from float32's on the card, 0.3% on the CPU)."""
     h, w = size
     if tuple(x.shape[1:3]) == (h, w):
         return x
     y = F.interpolate(
-        x.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
+        x.permute(0, 3, 1, 2).float(), size=(h, w), mode="bilinear",
         align_corners=align_corners,
     )
-    return y.permute(0, 2, 3, 1)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
 def upsample_flow_to(flow: torch.Tensor, size) -> torch.Tensor:
     """EEMFlow final upsampler: plain bilinear (align_corners=False), flow
     values NOT rescaled (reference ``EEMFlow.py:118-120``)."""
     return resize_bilinear(flow, size, align_corners=False)
+
+
+def upflow8(flow: torch.Tensor) -> torch.Tensor:
+    """8× bilinear (align_corners=True), magnitudes ×8."""
+    _, h, w, _ = flow.shape
+    return 8.0 * resize_bilinear(flow, (8 * h, 8 * w), align_corners=True)
 
 
 _RATES: dict = {}
@@ -45,7 +56,8 @@ def upsample2d_flow_as(flow: torch.Tensor, target_hw, if_rate: bool = False) -> 
         key = (w / w_, h / h_, res.dtype, res.device)
         scale = _RATES.get(key)
         if scale is None:  # made once: a fresh copy to the card each call costs the host
-            scale = _RATES[key] = torch.tensor(key[:2], dtype=res.dtype, device=res.device)
+            with torch.inference_mode(False):  # a normal tensor, which training may save
+                scale = _RATES[key] = torch.tensor(key[:2], dtype=res.dtype, device=res.device)
         res = res * scale
     return res
 

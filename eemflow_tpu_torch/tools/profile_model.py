@@ -1,5 +1,5 @@
-"""Profile the port's eval step (EEMFlow, EEMFlow+ or ERAFT) or EEMFlow's train step
-with ``torch.profiler`` (counterpart of ``tools/profile_model.py``): device
+"""Profile the port's eval step (EEMFlow, EEMFlow+ or ERAFT) or a train step
+(EEMFlow, EEMFlow+ or ERAFT) with ``torch.profiler`` (counterpart of ``tools/profile_model.py``): device
 time by kernel, the device's busy share over the profiled window (the
 union of its kernels' and copies' intervals in the exported trace over the
 window's wall time), host milliseconds per call and the host's own time
@@ -9,10 +9,11 @@ Profiles the forward on voxel grids already on the device; or, with
 ``--events N``, one whole device-voxelize eval sample (``Tester.run_sample``:
 packed events copied from the host, K1 voxelize (scatter and normalization), forward,
 flow copied back) with N random events per frame in a 2^18 bucket; or,
-with ``--train``, one meshflow train step on a raw-event batch already on
-the device (K1 voxelize per frame, forward, loss, backward, clip, AdamW;
+with ``--train``, one train step on a raw-event batch already on the
+device (K1 voxelize per frame, forward, loss, backward, clip, AdamW;
 ``--bf16`` for the mixed-precision forward), ``--events`` (default 30,000)
-events per frame.  The weights are random (timing does not depend on
+events per frame, ``--bins`` voxel bins: EEMFlow's against the 16×16
+meshflow label, EEMFlow+'s and ERAFT's against the full-resolution flow.  The weights are random (timing does not depend on
 them).  Writes a Chrome trace to ``--logdir`` and prints one JSON line.
 
 Usage:
@@ -21,8 +22,10 @@ Usage:
   python -m eemflow_tpu_torch.tools.profile_model -model eemflow_plus --size 720 1280 -bs 1 \
       [--fast_pyramid --fast_decoders --fast_sgu]
   python -m eemflow_tpu_torch.tools.profile_model -model eraft --size 720 1280 -bs 1 \
-      [--fused_update | --fused_update_bf16] [--corr_fast]
+      [--fused_update | --fused_update_bf16] [--corr_fast] [--stacked_lookup]
   python -m eemflow_tpu_torch.tools.profile_model --train --size 720 1280 -bs 6 [--bf16]
+  python -m eemflow_tpu_torch.tools.profile_model --train -model eemflow_plus --bins 15 -bs 6 [--bf16]
+  python -m eemflow_tpu_torch.tools.profile_model --train -model eraft -bs 6 [--bf16]
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ from eemflow_tpu_torch.models.registry import get_eval_model
 from eemflow_tpu_torch.tools.time_eval import add_mode_flags, mode_kwargs
 
 BUCKET = 1 << 18
-BINS = 5
 TOP = 12  # kernels listed, by device time
 # what the card runs, in the exported Chrome trace's categories
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -80,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "many events per frame (0: the forward alone; with --train: "
                    "30,000)")
     p.add_argument("--train", action="store_true",
-                   help="profile one EEMFlow meshflow train step (device voxelize)")
+                   help="profile one train step (device voxelize)")
+    p.add_argument("--bins", type=int, default=5, help="voxel bins of the input")
     p.add_argument("--bf16", action="store_true",
                    help="with --train: the bf16 mixed-precision forward")
     add_mode_flags(p)
@@ -104,28 +107,39 @@ def _train_step(args, rng, device):
     from eemflow_tpu_torch.train.optim import make_optimizer
     from eemflow_tpu_torch.train.trainer import create_train_state, make_train_step
 
-    if args.model != "eemflow":
-        raise SystemExit("--train profiles EEMFlow's meshflow train step")
     h, w = args.size
     n = args.events or 30000
     B = args.batch_size
-    state = create_train_state(get_model("eemflow", out_mesh_size=True), 0,
-                               make_optimizer(1e-4, num_steps=1000), device=device)
+    kw = train_kwargs(args)
+    label = (16, 16) if kw.get("out_mesh_size") else (h, w)
+    state = create_train_state(get_model(args.model, **kw), 0, make_optimizer(1e-4, num_steps=1000),
+                               device=device)
     events = [np.stack([_packed_events(rng, n, h, w) for _ in range(B)]) for _ in range(2)]
     batch = {
         "events_old": events[0], "events_new": events[1],
         "n_old": np.full(B, n, np.int32), "n_new": np.full(B, n, np.int32),
         "flip_h": rng.random(B) < 0.5, "flip_v": rng.random(B) < 0.1,
-        "flow": (rng.standard_normal((B, 16, 16, 2)) * 2).astype(np.float32),
-        "valid": np.ones((B, 16, 16), np.float32),
+        "flow": (rng.standard_normal((B, *label, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, *label), np.float32),
     }
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    train_step = make_train_step(preprocess=make_device_preprocess(BINS, h, w), mixed_precision=args.bf16)
+    train_step = make_train_step(preprocess=make_device_preprocess(args.bins, h, w), mixed_precision=args.bf16)
 
     def step():
         train_step(state, batch)
 
     return step
+
+
+def train_kwargs(args) -> dict:
+    """The train step's model: EEMFlow at the meshflow label's resolution,
+    the others at full resolution; the input channels the bins'."""
+    if args.model not in ("eemflow", "eemflow_plus", "eraft"):
+        raise SystemExit("--train profiles EEMFlow's, EEMFlow+'s or ERAFT's train step")
+    kw = {"n_first_channels": args.bins}
+    if args.model == "eemflow":
+        kw["out_mesh_size"] = True
+    return kw
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -136,14 +150,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     torch.manual_seed(0)
     h, w = args.size
     rng = np.random.default_rng(0)
-    model_kwargs = {"out_mesh_size": True, "mixed_precision": args.bf16} if args.train else mode_kwargs(args)
+    model_kwargs = {**train_kwargs(args), "mixed_precision": args.bf16} if args.train else mode_kwargs(args)
     if args.train:
         step = _train_step(args, rng, device)
     elif args.events:
         if args.batch_size != 1:
             raise SystemExit("--events profiles one sample: use -bs 1")
-        model = get_eval_model(args.model, **model_kwargs)
-        tester = Tester(model, device, preprocess=make_device_preprocess(BINS, h, w))
+        model = get_eval_model(args.model, n_first_channels=args.bins, **model_kwargs)
+        tester = Tester(model, device, preprocess=make_device_preprocess(args.bins, h, w))
         sample = {
             "events_old": _packed_events(rng, args.events, h, w), "n_old": np.int32(args.events),
             "events_new": _packed_events(rng, args.events, h, w), "n_new": np.int32(args.events),
@@ -152,9 +166,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         def step():
             tester.run_sample(sample)
     else:
-        model = get_eval_model(args.model, **model_kwargs).to(device)
+        model = get_eval_model(args.model, n_first_channels=args.bins, **model_kwargs).to(device)
         x1, x2 = (
-            torch.from_numpy(rng.standard_normal((args.batch_size, h, w, BINS)).astype(np.float32)).to(device)
+            torch.from_numpy(rng.standard_normal((args.batch_size, h, w, args.bins)).astype(np.float32)).to(device)
             for _ in range(2)
         )
 

@@ -5,7 +5,9 @@ Loads a released PyTorch ``.pth.tar`` and runs the per-sequence HREM
 protocol ({indoor,outdoor}×{fast,slow}, mean of per-sequence AEE) on the
 card, or on the CPU with ``--device cpu``.  ``--config`` names a JSON file
 whose top-level keys that are model constructor fields go to the model
-(``{"fused_update": true}`` runs ERAFT's update block as kernel K5).  The
+(``{"fused_update": true}`` runs ERAFT's update block as kernel K5,
+``{"stacked_lookup": true}`` its lookup over the stacked levels); the
+model's input channels are the data's voxel bins.  The
 checkpoint goes through ``compat.torch_loader.load_model_checkpoint``: a
 released ``.pth.tar`` or the port's own ``epoch_N.pt``, EEMFlow+'s dead
 keys dropped, the correlation ``index`` buffer the model's own.
@@ -18,6 +20,7 @@ Usage:
       --checkpoint EEMFlow+_HREM_dt1.pth.tar [--fast_pyramid --fast_decoders --fast_sgu]
   python -m eemflow_tpu_torch.tools.test_hrem -model eraft -int dt1 \
       --checkpoint eraft.pth.tar --max_samples 1 [--config cfg.json] [--stride 2]
+  python -m eemflow_tpu_torch.tools.test_hrem -model raft -int dt1 --checkpoint raft.pth.tar
 """
 
 from __future__ import annotations
@@ -89,22 +92,24 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    dataset = HREMEventFlow(
+        args.data_root, dt=args.event_interval,
+        raw_events=args.device_voxelize, bucket_size=args.bucket_size,
+        bucket_rungs=args.bucket_rungs,
+    )
     cfg = load_config(args.config) if args.config else {}
     model_kwargs = model_kwargs_from_config(args.model, cfg)
     model_kwargs.update({k: True for k in FUSED_FLAGS if getattr(args, k)})
     if args.fast:
         model_kwargs.update(fast_eval_kwargs(args.model))
+    # the first conv's input channels are the data's (flax infers them)
+    model_kwargs.setdefault("n_first_channels", dataset.num_bins)
     model = get_eval_model(args.model, **model_kwargs)
     try:
         load_model_checkpoint(model, args.checkpoint, args.model, log=lambda m: print(m, flush=True))
     except ValueError as e:
         raise SystemExit(str(e)) from None
 
-    dataset = HREMEventFlow(
-        args.data_root, dt=args.event_interval,
-        raw_events=args.device_voxelize, bucket_size=args.bucket_size,
-        bucket_rungs=args.bucket_rungs,
-    )
     preprocess = (
         make_device_preprocess(dataset.num_bins, dataset.image_height, dataset.image_width)
         if args.device_voxelize else None

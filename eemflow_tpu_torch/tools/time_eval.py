@@ -62,6 +62,9 @@ def add_mode_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fused_update_bf16", action="store_true",
                    help="ERAFT: K5 with bf16 conv operands (f32 accumulation; not "
                    "checkpoint-parity)")
+    p.add_argument("--stacked_lookup", action="store_true",
+                   help="ERAFT: the correlation levels stacked once and looked up in one "
+                   "gather an iteration (the same function)")
 
 
 def mode_kwargs(args) -> dict:
@@ -76,8 +79,9 @@ def mode_kwargs(args) -> dict:
     for flag in ("fast_decoders", "fast_sgu"):
         if getattr(args, flag):
             extra[flag] = True
-    if args.corr_fast:
-        extra["corr_fast"] = True
+    for flag in ("corr_fast", "stacked_lookup"):
+        if getattr(args, flag):
+            extra[flag] = True
     if args.fused_update or args.fused_update_bf16:
         extra["fused_update"] = True
         if args.fused_update_bf16:

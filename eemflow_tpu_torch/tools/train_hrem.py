@@ -1,26 +1,31 @@
 """HREM training CLI of the port (counterpart of ``tools/train_hrem.py``;
 reference ``train_EEMFlow_HREM.py``).
 
-Builds a registry model with its parameters drawn from ``--seed``, loads a
-JSON config (the flags take the learning rate and weight decay, as in the
-JAX CLI), and trains with the AdamW + OneCycle recipe on the card (or the
-CPU with ``--device cpu``), logging every 10 steps to ``log.txt`` and
-``metrics.jsonl`` and checkpointing parameters, optimizer, schedule and
-step each epoch (``-se N`` resumes from epoch N).  EEMFlow predicts at the
-16×16 mesh resolution of the HREM meshflow labels unless
-``--full_res_flow``.  ``--device_voxelize`` reads raw events and voxelizes
-them on the device (kernel K1, once a frame); mixed precision (``--bf16``
-or the config's ``mixed_precision``) runs the forward on bf16 copies of
-the float32 parameters (``train.trainer``).  The JAX CLI's ``--viz`` comes
-with the port's ``viz`` package.  EEMFlow+ evaluates and serves but does
-not train yet: the JAX CLI sets ``out_mesh_size`` for EEMFlow only, so what
-EEMFlow+ trains against needs its own check against JAX first.
+Builds a registry model (EEMFlow, EEMFlow+, ERAFT or RAFT) with its
+parameters drawn from ``--seed`` and its input channels from the config's
+``num_voxel_bins``, loads a JSON config (the flags take the learning rate
+and weight decay, as in the JAX CLI), and trains with the AdamW +
+OneCycle recipe on the card (or the CPU with ``--device cpu``), logging
+every 10 steps to ``log.txt`` and ``metrics.jsonl`` and checkpointing
+parameters, BatchNorm statistics, optimizer, schedule and step each epoch
+(``-se N`` resumes from epoch N).  EEMFlow predicts at the 16×16 mesh
+resolution of the HREM meshflow labels unless ``--full_res_flow``; the
+other models predict at full resolution only, so they need
+``--full_res_flow`` (the JAX CLI would fail at the loss's broadcast; this
+one refuses before the first step).  ``--device_voxelize`` reads raw
+events and voxelizes them on the device (kernel K1, once a frame); mixed
+precision (``--bf16`` or the config's ``mixed_precision``) runs the
+forward on bf16 copies of the float32 parameters (``train.trainer``).  The
+JAX CLI's ``--viz`` comes with the port's ``viz`` package.
 
 Usage:
   python -m eemflow_tpu_torch.tools.train_hrem -model eemflow -int dt1 \
       --data_root dataset/HREM --config configs/hrem_meshflow.json -bs 6 \
       --lr 1e-5 --train_iters 6000000 --val_iters 10000 [-se N] \
       [--device_voxelize] [--bf16] [--device cpu]
+  python -m eemflow_tpu_torch.tools.train_hrem -model eemflow_plus \
+      --config configs/hrem_eemflow_plus.json --full_res_flow [...]
+  python -m eemflow_tpu_torch.tools.train_hrem -model eraft --full_res_flow [...]
 """
 
 from __future__ import annotations
@@ -78,14 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# registered models whose training is not ported yet, and the ROADMAP item
-NOT_TRAINED = {"eemflow_plus": "ROADMAP.md §1 item 2, EEMFlow+ training"}
-
-
 def main(argv: Optional[Sequence[str]] = None) -> TrainState:
     args = build_parser().parse_args(argv)
-    if args.model in NOT_TRAINED:
-        raise SystemExit(f"-model {args.model}: training is not ported yet ({NOT_TRAINED[args.model]})")
+    family = get_family(args.model)  # a model the port does not train raises here
+    # only EEMFlow predicts at the meshflow label's 16x16 (out_mesh_size)
+    if args.model != "eemflow" and not args.full_res_flow:
+        raise SystemExit(
+            f"-model {args.model} predicts at full resolution and the HREM meshflow label is 16x16: "
+            f"train it with --full_res_flow")
     device = resolve_device(args.device)
     # full float32 convolutions and matmuls (cuDNN would otherwise run float32
     # convolutions in TF32)
@@ -103,11 +108,14 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
 
     # meshflow training: EEMFlow predicts at the mesh resolution (16x16) of
     # the HREM labels (the reference's out_mesh_size branch)
+    num_bins = loader_args.get("num_voxel_bins", 5)
     model_kwargs = model_kwargs_from_config(args.model, cfg)
     if args.model == "eemflow" and not args.full_res_flow:
         model_kwargs["out_mesh_size"] = True
+    # flax infers the first conv's input channels from the batch; a torch
+    # module fixes them, so they come from the data
+    model_kwargs["n_first_channels"] = num_bins
     model = get_model(args.model, **model_kwargs)
-    family = get_family(args.model)
     tx = make_optimizer(
         lr=args.lr,
         wdecay=args.wd,
@@ -116,7 +124,6 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
         clip=train_cfg.get("clip", 1.0),
     )
 
-    num_bins = loader_args.get("num_voxel_bins", 5)
     dataset = HREMEventFlow(
         args.data_root,
         dt=args.event_interval,

@@ -1,10 +1,11 @@
 """Per-model-family input and loss adapters (counterpart of
 ``eemflow_tpu/train/adapters.py:56-75, 229-315``), reduced to the family
-this slice trains.
+the port trains.
 
 ``two_volume`` is the reference's ``TrainRaftEvents`` contract
 (``train_mvsec.py:375-386``, the HREM entry path): ``model(ev_old,
-ev_new)``, the γ-weighted sequence loss.  The JAX package's other families
+ev_new)``, the γ-weighted sequence loss; the port trains EEMFlow,
+EEMFlow+, ERAFT and RAFT through it.  The JAX package's other families
 (single volume, raw segments, event + image, the UNet, dense-context and
 MIMO-UNet reconstruction losses, GMFlowNet's matching loss) come with the
 MVSEC training slice; asking for one raises.
@@ -43,7 +44,9 @@ class Family:
 FAMILIES: Dict[str, Family] = {f.name: f for f in [Family()]}
 
 # model registry name → family, for the models the port trains
-MODEL_FAMILY: Dict[str, str] = {"eemflow": "two_volume", "eemflow_plus": "two_volume"}
+MODEL_FAMILY: Dict[str, str] = {
+    "eemflow": "two_volume", "eemflow_plus": "two_volume", "eraft": "two_volume", "raft": "two_volume",
+}
 
 
 def get_family(name_or_family) -> Family:

@@ -15,10 +15,14 @@ on bf16 copies of the float32 master parameters
 outputs are cast back to float32 before the loss; the gradients reach the
 masters through the casts.  (``torch.autocast`` keeps some ops in float32
 and would compute another function.)  No loss scaling: bf16 has float32's
-exponent range.
+exponent range.  BatchNorm (ERAFT's and RAFT's context encoder) keeps its
+running statistics float32 and updates them in the forward, from float32
+statistics of its input, as flax's ``batch_stats`` (``models.raft_core.
+BatchNorm``); ``functional_call`` swaps only the parameters, so the
+module's own buffers take the update.
 
-Checkpoints carry parameters, optimizer, schedule and step
-(``train.checkpoint``).
+Checkpoints carry parameters, BatchNorm statistics, optimizer, schedule
+and step (``train.checkpoint``).
 """
 
 from __future__ import annotations
@@ -54,12 +58,18 @@ def cast_floating(tree, dtype: torch.dtype):
 
 def seeded_init_(model: torch.nn.Module, seed: int) -> None:
     """Draw every parameter anew from ``seed`` with the modules' own
-    initializers (``reset_parameters``), leaving the global RNG as it was."""
+    initializers (``reset_parameters``), leaving the global RNG as it was:
+    the layers first, then each container that has its own (RAFT's
+    encoders draw their convs as the reference does), innermost first."""
+    mods = [m for m in model.modules() if hasattr(m, "reset_parameters")]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         with torch.no_grad():
-            for m in model.modules():
-                if hasattr(m, "reset_parameters"):
+            for m in mods:
+                if next(m.children(), None) is None:
+                    m.reset_parameters()
+            for m in reversed(mods):
+                if next(m.children(), None) is not None:
                     m.reset_parameters()
 
 
@@ -116,8 +126,13 @@ def make_train_step(
         model = state.model
         args = fam.model_args(batch)
         if mixed_precision:
+            # each parameter once: a module reached under two names (ERAFT's
+            # strided blocks hold norm3 also as downsample.1) is one object,
+            # whose swapped attribute both names see; functional_call's
+            # weight tying would leave the bf16 copies in the model
             params = {n: p.to(torch.bfloat16) for n, p in model.named_parameters()}
-            outputs = functional_call(model, params, cast_floating(args, torch.bfloat16), {"train": True})
+            outputs = functional_call(model, params, cast_floating(args, torch.bfloat16), {"train": True},
+                                      tie_weights=False)
             outputs = cast_floating(outputs, torch.float32)
         else:
             outputs = model(*args, train=True)

@@ -260,8 +260,9 @@ def test_cli_reproduces_golden_aee(golden_root, tmp_path, extra):
 
 def test_registry_and_training_refusal(tmp_path):
     """EEMFlow+ is registered with no ``--fast`` mapping (as in JAX), takes
-    its fused flags, and its training is refused until it is checked
-    against JAX."""
+    its fused flags, and its training against the 16x16 meshflow label is
+    refused before a step: it predicts at full resolution, so it trains
+    with ``--full_res_flow``."""
     from eemflow_tpu_torch.tools.train_hrem import main as train_main
 
     assert "eemflow_plus" not in FAST_EVAL_KWARGS and fast_eval_kwargs("eemflow_plus") == {}
@@ -271,7 +272,7 @@ def test_registry_and_training_refusal(tmp_path):
         get_eval_model("eemflow_plus", fast_head=True)
     with pytest.raises(ValueError):
         get_eval_model("eemflow_plus", cdc_variant="cfp", fast_sgu=True)
-    with pytest.raises(SystemExit, match="not ported yet.*ROADMAP.md"):
+    with pytest.raises(SystemExit, match="--full_res_flow"):
         train_main(["-model", "eemflow_plus", "--data_root", str(tmp_path), "--device", "cpu"])
 
 

@@ -141,8 +141,7 @@ def test_golden_checkpoint_loads_strictly():
 def test_model_fields_and_registry():
     assert fast_eval_kwargs("eraft") == {}
     assert get_eval_model("eraft", upsample_all=True).upsample_all
-    with pytest.raises(NotImplementedError):
-        ERAFT(stacked_lookup=True)
+    assert ERAFT(stacked_lookup=True).stacked_lookup
     with pytest.raises(ValueError):
         ERAFT(fused_dtype="float16")
     g = coords_grid(2, 3, 4)

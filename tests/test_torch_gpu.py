@@ -1,7 +1,8 @@
 """Kernels of the port against their plain twins on the card (EEMFlow+'s
 K3 chains among them), K2's backward, the eval-only kernels' refusal under
-grad, ERAFT and EEMFlow+ on the card against the CPU, and the serving CLI
-on the card against the CPU.  Marked ``gpu``: they skip where no CUDA device is
+grad, ERAFT and EEMFlow+ on the card against the CPU, their train steps and
+ERAFT's stacked lookup on the card against the CPU, and the serving CLI on
+the card against the CPU.  Marked ``gpu``: they skip where no CUDA device is
 present.  On a machine with a
 card and without JAX (``tests/conftest.py`` imports it) run them with
 ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``."""
@@ -751,6 +752,111 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
     for name, g in g_cpu.items():
         assert float((g_gpu[name] - g).abs().max()) <= 1e-3 * float(g.abs().max()), name
+
+
+# the two-volume models beyond EEMFlow: (model kwargs, K2 launches a step,
+# the gradient's unit: each leaf's own largest |g|, or the model's for
+# ERAFT, which normalises before nearly every ReLU, so that a float32
+# rounding that flips one unit moves a leaf by ~1% of its own largest)
+TWO_VOLUME_STEPS = {
+    "eemflow_plus": ({"n_first_channels": 15}, 5, True),
+    "eraft": ({"iters": 3}, 0, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TWO_VOLUME_STEPS))
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_two_volume_train_step_on_card_matches_cpu(cuda, name, bf16):
+    """One train step of EEMFlow+ (15 bins, K2 five launches) or ERAFT
+    (BatchNorm statistics updated) against the full-resolution flow, 128x256,
+    B=2, device voxelize with flips, from the same seeded parameters and
+    batch on the card and on the CPU.  float32: the loss within 1e-4
+    relative, each gradient within 1e-3 of its unit, the BatchNorm
+    statistics within 1e-4 of their largest; bf16 (both sides round the
+    same operands, in other orders): the loss within 1e-2 relative and the
+    whole gradient within 5% relative L2."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.registry import get_model
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    kw, k2, per_leaf = TWO_VOLUME_STEPS[name]
+    bins = kw.get("n_first_channels", 5)
+    rng = np.random.default_rng(17)
+    h, w, B, N = 128, 256, 2, 8192
+    ev = np.zeros((2, B, N, 4), np.float32)
+    for f in range(2):
+        for b in range(B):
+            ev[f, b, :, 0] = np.sort(rng.uniform(0, 5e4, N))
+            ev[f, b, :, 1] = rng.integers(0, w, N)
+            ev[f, b, :, 2] = rng.integers(0, h, N)
+            ev[f, b, :, 3] = rng.integers(0, 2, N)
+    batch = {
+        "events_old": ev[0], "events_new": ev[1], "n_old": np.array([N, N - 100], np.int32),
+        "n_new": np.array([N - 7, N], np.int32), "flip_h": np.array([True, False]),
+        "flip_v": np.array([False, True]), "flow": (rng.standard_normal((B, h, w, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, h, w), np.float32),
+    }
+    runs = {}
+    for key, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        state = create_train_state(get_model(name, **kw), 5, make_optimizer(1e-4, num_steps=100), device=dev)
+        grads = {}
+        opt_step = state.opt.step
+
+        def step_recording_grads(state=state, grads=grads, opt_step=opt_step):
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()})
+            return opt_step()
+
+        state.opt.step = step_recording_grads
+        before = dict(launch_counts)
+        _, metrics = make_train_step(preprocess=make_device_preprocess(bins, h, w), mixed_precision=bf16)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        stats = {k: v.detach().cpu() for k, v in state.model.state_dict().items() if "running" in k}
+        runs[key] = (float(metrics["loss"]), grads, {k: launch_counts[k] - before[k] for k in launch_counts}, stats)
+    (loss_cpu, g_cpu, n_cpu, s_cpu), (loss_gpu, g_gpu, n_gpu, s_gpu) = runs["cpu"], runs["card"]
+    assert n_cpu["voxel_scatter"] == n_cpu["local_corr"] == 0
+    assert n_gpu["voxel_scatter"] == 2 and n_gpu["local_corr"] == k2
+    assert n_gpu["fused_convs_pool"] == n_gpu["coarse_head"] == n_gpu["update_block"] == 0
+    assert bool(s_cpu) == (name == "eraft")
+    ours = torch.cat([g_gpu[n].flatten() for n in g_cpu])
+    ref = torch.cat([g.flatten() for g in g_cpu.values()])
+    rel = float((ours - ref).norm() / ref.norm())
+    if bf16:
+        assert np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 1e-2 * abs(loss_cpu)
+        assert rel <= 5e-2, rel
+        return
+    assert np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    top = float(ref.abs().max())
+    for n, g in g_cpu.items():
+        unit = float(g.abs().max()) if per_leaf else top
+        assert float((g_gpu[n] - g).abs().max()) <= 1e-3 * unit, n
+    assert rel <= 1e-3, rel
+    for k, v in s_cpu.items():
+        assert float((s_gpu[k] - v).abs().max()) <= 1e-4 * float(v.abs().max()), k
+
+
+@pytest.mark.parametrize("levels", [4, 5])
+def test_stacked_lookup_on_card_matches_cpu(cuda, levels):
+    """ERAFT's stacked lookup on the card at its 720x1280 grid's shapes
+    (92x160, B=1): against the per-level lookup on the card and against the
+    CPU, with its gradient."""
+    from eemflow_tpu_torch.ops import corr_block
+
+    rng = np.random.default_rng(levels)
+    f1, f2 = (torch.from_numpy(rng.standard_normal((1, 92, 160, 64)).astype(np.float32)) for _ in range(2))
+    coords = torch.from_numpy((rng.random((1, 92, 160, 2)) * np.array([160, 92]) * 1.2 - 8).astype(np.float32))
+    out = {}
+    for key, dev, stacked in (("cpu", torch.device("cpu"), True), ("card", cuda, True), ("card_per_level", cuda, False)):
+        a, b = (t.to(dev, copy=True).requires_grad_() for t in (f1, f2))
+        pyr = corr_block.build_corr_pyramid(a, b, levels)
+        lookup = corr_block.lookup_corr_pyramid_stacked if stacked else corr_block.lookup_corr_pyramid
+        win = lookup(pyr, coords.to(dev))
+        (win * win.detach()).sum().backward()
+        out[key] = (win.detach().cpu(), a.grad.cpu(), b.grad.cpu())
+    for key in ("card_per_level", "cpu"):
+        for got, want in zip(out["card"], out[key]):
+            assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max())), key
 
 
 def _he_chain(rng, cin, widths, concat, groups, device):
