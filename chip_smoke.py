@@ -17,23 +17,28 @@ where it stopped:
   2. each kernel against its plain PyTorch twin at the main paths' shapes
      (K1 ``voxel_scatter`` and ``voxelize`` on the main path's batch and
      the edge cases: n_valid 0 and 1, every event out of frame, every event
-     on one pixel, a frame that is not whole tiles, 15 bins; K2 local
+     on one pixel (each side against the float64 sum of the same votes,
+     within a float32 sum's bound n·u·Σ|v|), a frame that is not whole
+     tiles, 15 bins, MVSEC's 260×346 frame with a dt4 window and with
+     every event in the partial edge tiles; K2 local
      correlation, ``local_corr_levels`` on the permuted views of the
      forward's pooled levels in float32 at B=1 and 2 and on bf16 operands
-     (the training forward's mixed precision) at B=1 and 6, and K2's
+     (the training forward's mixed precision) at B=1 and 6, and on
+     MVSEC's 4×4 levels (256×256), and K2's
      backward, one level (``LocalCorr``) and three in one launch
      (``LocalCorrLevels``, float32 and bf16); K3 fused conv chain + pool at
-     the three 720×1280 pyramid levels for B=1 and 2, in float32 and in
-     bf16, on a ragged NHWC view, and on a small ragged concat chain; K3 on
+     the three 720×1280 pyramid levels and the three 256×256 (MVSEC) ones
+     for B=1 and 2, in float32 and in bf16, on a ragged NHWC view, and on a small ragged concat chain; K3 on
      EEMFlow+'s own chains at their 720×1280 level shapes, float32 and
      bf16: the SGU's concat chain (levels 5..2), the decoders' chains with
      their convs 2-4 grouped and shuffled (levels 6..2), each in the two
      launches its plan gives, and the fast pyramid's three chains; K4
      coarse head at the three 12×20
-     levels for B=1 and 2, groups 5 and 1, at both cluster sizes, and at an
-     8×15 grid and a grid that takes the device-memory scratch; K5 update
-     block, both entry points, at ERAFT's 92×160 and 64×120 grids and an
-     odd 28×12 one, in float32 and bf16, with He-scaled random weights),
+     levels for B=1 and 2, groups 5 and 1, at both cluster sizes, at an
+     8×15 grid, a grid that takes the device-memory scratch and MVSEC's
+     4×4 levels; K5 update block, both entry points, at ERAFT's 92×160
+     and 64×120 grids, an odd 28×12 one and MVSEC's 32×32, in float32 and
+     bf16, with He-scaled random weights),
      with the tolerance stated;
   3. end to end: the port's HREM eval CLI at 720×1280 on the seed-99
      synthetic split with the golden checkpoints, each path's launch
@@ -79,6 +84,21 @@ where it stopped:
      float32 step fits (printed with its peak memory), with their launch
      counts (K1 two calls a step, K2 five launches for EEMFlow+ and none
      for ERAFT, no K3, K4 or K5);
+  3c. MVSEC: the port's MVSEC eval CLI on synthetic 260×346 sequences
+     (30,000 events a frame interval, timestamps at MVSEC's ~1.5e9 s,
+     written by the port's own HDF5 writer) with the golden EEMFlow
+     weights: dt1 dense, dt1 sparse on an outdoor sequence and dt4, each
+     on the host path, with ``--device_voxelize`` (K1 over the whole frame,
+     then the crop), ``--fast`` (K3, K4) and ``--device_voxelize
+     --eval_batch 2``, each run's launch counts set to 0 just before it and
+     read just after, its AEE against the host path's and the host path's
+     against the port's CPU run; ERAFT (golden weights) on the module path
+     and with ``fused_update`` (K5 at 32×32); the MVSEC training CLI with
+     ERAFT's ``configs/mvsec_eraft.json`` (B=6, the host path's resize
+     augmentation) and EEMFlow with ``--device_voxelize`` (K1 twice a
+     step, the flips and the crop on the card), in bf16 and float32, with
+     their launch counts, and 20 steps of each on one batch lowering its
+     loss;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
@@ -112,7 +132,14 @@ where it stopped:
      the device's busy share of the timed window); one
      720×1280 B=6 train step (device voxelize) in bf16 and float32, back to
      back, the device's busy time and share of one profiled run, and its
-     peak memory; the same for EEMFlow+ and ERAFT at their batch.
+     peak memory; the same for EEMFlow+ and ERAFT at their batch; then at
+     MVSEC's shapes each kernel (K1 on a dt1 and a dt4 window at 260×346,
+     K2 and K4 on the 4×4 levels, K3's six pyramid calls at 256×256, K5's
+     pair at 32×32) beside its bound, plain version and library call, the
+     256×256 B=1 forwards of EEMFlow (standard, ``--fast``) and ERAFT
+     (module path, K5) back to back with their device busy time, one whole
+     eval sample (host and device voxelize), and the two MVSEC train steps
+     (ms, busy share, peak memory).
 
 Then one JSON line of the train step's times (``{"train_step": ...}``:
 EEMFlow's under ``bf16`` and ``float32``, EEMFlow+'s and ERAFT's under
@@ -128,7 +155,9 @@ K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
 the time per wrapper call back to back; ``standard_ms`` the device time of
 the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
 for K1 and K2, ``launches_per_train_step_eemflow_plus`` and ``_eraft``
-beside it), and as the last line ``{"ok": true, "device": {...}}``.
+beside it; ``mvsec_*`` fields: the kernel at MVSEC's shapes and its
+launches on the MVSEC paths of phase 3c), and as the last line
+``{"ok": true, "device": {...}}``.
 Any fault exits non-zero without the ``ok`` line, as does a machine
 without CUDA.  Synthetic data goes to a temporary directory outside the
 repository.  Parity phases run float32 convolutions and matmuls in full
@@ -186,6 +215,15 @@ K3_LEVELS = (
     ((64, 96, 160), (64, 64), 8, False),
 )
 HEAD_CHANNELS = (16, 32, 64)
+# MVSEC (phase 3c): the DAVIS sensor's 260x346 frames, voxelized whole and
+# evaluated on their 256x256 centre crop; EEMFlow's pyramid levels there
+# (no padding: 256 is a multiple of 64) as K3_LEVELS, its coarse levels 4x4
+MVSEC_H, MVSEC_W, MVSEC_CROP = 260, 346, 256
+K3_LEVELS_MVSEC = (
+    ((16, 128, 128), (16,), 32, True),
+    ((32, 64, 64), (32, 32), 16, True),
+    ((64, 32, 32), (64, 64), 8, False),
+)
 GOLDEN_TOL = 0.01
 PATH_TOL = 1e-5
 FORWARD_TOL = 1e-4
@@ -193,8 +231,9 @@ FORWARD_TOL = 1e-4
 # order only; bf16 as K3
 K5_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 # ERAFT's 1/8 grids at 720x1280 (padded 736x1280) and 512x960, and an odd
-# small one no row tiling of the TPU kernels takes
+# small one no row tiling of the TPU kernels takes; MVSEC's 256x256 crop
 K5_GRIDS = ((92, 160), (64, 120), (28, 12))
+K5_GRID_MVSEC = (32, 32)
 K2_GRAD_TOL = 1e-5
 # ERAFT AEE: the fused update against the module path (summation order
 # carried through 12 iterations); bf16 operands against float32
@@ -521,7 +560,10 @@ def phase_parity(device: torch.device) -> dict:
 
     phase("2 kernels against their twins")
     rng = np.random.default_rng(0)
-    k1_err, voxelize_err = phase_parity_k1(device, rng)
+    # the MVSEC shapes' inputs come from a generator of their own, so that
+    # every other case draws what it drew before they were added
+    mvsec_rng = np.random.default_rng(14)
+    k1_err, voxelize_err = phase_parity_k1(device, rng, mvsec_rng)
 
     k2_err = 0.0
     for shape in ((1, 12, 20, 16), (1, 12, 20, 32), (1, 12, 20, 64), (1, 96, 160, 64)):
@@ -538,10 +580,10 @@ def phase_parity(device: torch.device) -> dict:
     levels_err, k2_bf16_err = phase_parity_k2_levels(device, rng)
     k2_err = max(k2_err, levels_err)
     phase_parity_k2_backward(device, rng)
-    k3_err = phase_parity_k3(device, rng)
+    k3_err = phase_parity_k3(device, rng, mvsec_rng)
     plus_err, tc_err = phase_parity_k3_plus(device, rng)
-    k4_err = phase_parity_k4(device, rng)
-    k5_err = phase_parity_k5(device, rng)
+    k4_err = phase_parity_k4(device, rng, mvsec_rng)
+    k5_err = phase_parity_k5(device, rng, mvsec_rng)
     return {"voxel_scatter": k1_err, "voxelize": voxelize_err, "local_corr": k2_err, "local_corr_bf16": k2_bf16_err,
             "fused_convs_pool": max(k3_err, tc_err), "fused_convs_pool_plus_chains": plus_err, "coarse_head": k4_err,
             "update_block": k5_err}
@@ -623,7 +665,7 @@ def exact_bf16_chain(x, ws, bs, relus, concat, groups):
     return y
 
 
-def phase_parity_k1(device: torch.device, rng):
+def phase_parity_k1(device: torch.device, rng, mvsec_rng):
     """K1's two entry points against their plain versions: the main path's
     batch and the edge cases (n_valid 0 and 1, every event out of frame,
     every event on one pixel, a frame that is not a whole number of tiles,
@@ -641,6 +683,10 @@ def phase_parity_k1(device: torch.device, rng):
         ("a 45x77 frame (not whole 32x32 tiles), bins 15",
          k1_batch(rng, (3_000, 5_000), N=8192, h=45, w=77), 15, 45, 77),
         ("bins 15 at 720x1280", k1_batch(rng, (100_000, 60_000), N=1 << 17), 15, H, W),
+        ("MVSEC 260x346 (partial tiles on both axes), a dt4 and a dt1 window",
+         k1_batch(mvsec_rng, (120_000, 30_000), N=1 << 17, h=MVSEC_H, w=MVSEC_W), BINS, MVSEC_H, MVSEC_W),
+        ("MVSEC 260x346, every event in the partial edge tiles (x >= 320 or y >= 256)",
+         mvsec_edge_batch(mvsec_rng, (30_000, 5_000), N=1 << 15), BINS, MVSEC_H, MVSEC_W),
     )
     worst = {"scatter": 0.0, "voxelize": 0.0}
     for label, (ev, nv), bins, h, w in cases:
@@ -650,6 +696,11 @@ def phase_parity_k1(device: torch.device, rng):
             got = fn(e, n, bins, h, w)
             ref = ref_fn(e, n, bins, h, w)
             torch.cuda.synchronize()
+            if what == "scatter" and label.startswith("every event on one pixel"):
+                # both sides are float32 sums of ~10^4 votes a cell, in no
+                # fixed order: each is held against the exact sum instead
+                worst[what] = max(worst[what], k1_against_exact_sums(e, n, bins, h, w, got, ref, label))
+                continue
             err = float((got - ref).abs().max())
             largest = float(ref.abs().max())
             tol = K1_TOL_REL * largest if what == "scatter" else K1_VOXELIZE_TOL * max(1.0, largest)
@@ -661,14 +712,68 @@ def phase_parity_k1(device: torch.device, rng):
     return worst["scatter"], worst["voxelize"]
 
 
-def forward_pooled(model, batch: int, device, seed: int):
-    """The three pooled NCHW levels of both frames of a 720x1280 standard
-    forward (random input), as ``EEMFlow.forward`` makes them."""
+def mvsec_edge_batch(rng, n_valid, N: int):
+    """A [B, N, 4] MVSEC batch (260x346) whose events all fall in the partial
+    32x32 tiles of the right (x >= 320) or bottom (y >= 256) edge, a few
+    just past the frame."""
+    ev, nv = k1_batch(rng, n_valid, N=N, h=MVSEC_H, w=MVSEC_W)
+    for b, n in enumerate(n_valid):
+        right = rng.random(n) < 0.5
+        ev[b, :n, 1] = np.where(right, rng.integers(320, MVSEC_W + 2, n), ev[b, :n, 1])
+        ev[b, :n, 2] = np.where(right, ev[b, :n, 2], rng.integers(256, MVSEC_H + 2, n))
+    return ev, nv
+
+
+# float32's unit roundoff: a float32 sum of n terms lies within n·u·Σ|v|
+# of the exact sum (recursive summation in any order)
+F32_UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def k1_against_exact_sums(e, n, bins, h, w, got, ref, label) -> float:
+    """K1's scatter (``got``) and its plain version (``ref``), each against
+    the float64 sum of the same float32 votes, on the cells that take votes,
+    within a float32 sum's forward-error bound n·u·Σ|v| (n the cell's votes,
+    Σ|v| their magnitudes); every other cell as the other cases, against the
+    plain version.  Returns the kernel's largest difference to the plain
+    version."""
+    from eemflow_tpu_torch.events.voxel import voxel_votes
+
+    idx, val = voxel_votes(e, n, bins, h, w)
+    size = got.numel()
+
+    def sums(values):
+        return torch.zeros(size, dtype=torch.float64, device=e.device).index_add_(0, idx, values.double())
+
+    exact, count, mag = sums(val), sums(torch.ones_like(val)), sums(val.abs())
+    voted = count > 0
+    bound = count * F32_UNIT_ROUNDOFF * mag
+    k_err = (got.reshape(-1).double() - exact).abs()
+    p_err = (ref.reshape(-1).double() - exact).abs()
+    worst = int(torch.argmax(torch.where(voted, k_err / bound.clamp(min=1e-300), 0.0)))
+    largest = float(ref.abs().max())
+    rest = float(torch.where(voted, 0.0, (got - ref).abs().reshape(-1)).max())
+    torch.cuda.synchronize()
+    say(f"K1 scatter {label}, the {int(voted.sum())} cells that take votes against the float64 sum of the same "
+        f"votes: kernel max|Δ| {float(k_err[voted].max()):.3e}, plain version {float(p_err[voted].max()):.3e}; "
+        f"bound n·u·Σ|v| at the kernel's worst cell {float(bound[worst]):.3e} ({int(count[worst])} votes, "
+        f"Σ|v| {float(mag[worst]):.1f}), smallest bound {float(bound[voted].min()):.3e}; kernel vs plain "
+        f"{float((got - ref).abs().max()):.3e}; the other cells max|Δ| {rest:.3e} (tolerance "
+        f"{K1_TOL_REL * largest:.3e}, K1_TOL_REL·largest)")
+    require(bool(torch.isfinite(got).all()) and bool((k_err[voted] <= bound[voted]).all())
+            and bool((p_err[voted] <= bound[voted]).all()) and rest <= K1_TOL_REL * largest,
+            f"K1 scatter disagrees with the exact sums ({label})")
+    return float((got - ref).abs().max())
+
+
+def forward_pooled(model, batch: int, device, seed: int, h: int = H, w: int = W):
+    """The three pooled NCHW levels of both frames of an h×w (720x1280
+    unless given) standard forward (random input), as ``EEMFlow.forward``
+    makes them."""
     from eemflow_tpu_torch.ops.pad import InputPadder
 
     g = torch.Generator(device="cpu").manual_seed(seed)
-    frames = [torch.randn(batch, H, W, BINS, generator=g).to(device) for _ in range(2)]
-    padder = InputPadder((H, W), mode="chairs", eval_pad_rate=model.pad_rate)
+    frames = [torch.randn(batch, h, w, BINS, generator=g).to(device) for _ in range(2)]
+    padder = InputPadder((h, w), mode="chairs", eval_pad_rate=model.pad_rate)
     with torch.inference_mode():
         ev1, ev2 = padder.pad_nchw(*(f.permute(0, 3, 1, 2).contiguous() for f in frames))
         return model.pyramid(ev1), model.pyramid(ev2)
@@ -689,8 +794,14 @@ def phase_parity_k2_levels(device: torch.device, rng):
     model.load_state_dict(to_state_dict(load_torch_checkpoint(GOLDEN_CKPT)))
     model.to(device)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for dtype, batch in ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1), (torch.bfloat16, 6)):
-        p1, p2 = forward_pooled(model, batch, device, seed=10 + batch)
+    # 720x1280 (12x20 levels), and MVSEC's 256x256 crop (4x4 levels: the
+    # +-4 window wider than the grid, nearly every tap on padding)
+    cases = [(dtype, batch, (H, W)) for dtype, batch in
+             ((torch.float32, 1), (torch.float32, 2), (torch.bfloat16, 1), (torch.bfloat16, 6))]
+    cases += [(torch.float32, 1, (MVSEC_CROP,) * 2), (torch.float32, 2, (MVSEC_CROP,) * 2),
+              (torch.bfloat16, 6, (MVSEC_CROP,) * 2)]
+    for dtype, batch, (h, w) in cases:
+        p1, p2 = forward_pooled(model, batch, device, seed=10 + batch, h=h, w=w)
         pairs = [(a.to(dtype).permute(0, 2, 3, 1), b.to(dtype).permute(0, 2, 3, 1)) for a, b in zip(p1, p2)]
         before = launch_counts["local_corr"]
         with torch.inference_mode():
@@ -786,7 +897,7 @@ def k5_inputs(rng, h: int, w: int, device):
     )
 
 
-def phase_parity_k5(device: torch.device, rng) -> float:
+def phase_parity_k5(device: torch.device, rng, mvsec_rng) -> float:
     """Both K5 entry points against their plain versions on the same
     inputs: the motion encoder on (corr, flow), the GRU and flow head on
     (net, inp, the plain motion features)."""
@@ -798,8 +909,8 @@ def phase_parity_k5(device: torch.device, rng) -> float:
     for dtype in (torch.float32, torch.bfloat16):
         fused = make_fused_update(block, dtype)
         tol = K5_TOL[str(dtype).split(".")[1]]
-        for h, w in K5_GRIDS:
-            net, inp, corr, flow = k5_inputs(rng, h, w, device)
+        for (h, w), g in [(grid, rng) for grid in K5_GRIDS] + [(K5_GRID_MVSEC, mvsec_rng)]:
+            net, inp, corr, flow = k5_inputs(g, h, w, device)
             with torch.inference_mode():
                 motion = k5.update_motion(corr, flow, fused)
                 ref_motion = motion_encoder_plain(corr, flow, fused.motion, dtype)
@@ -818,16 +929,19 @@ def phase_parity_k5(device: torch.device, rng) -> float:
     return worst
 
 
-def phase_parity_k3(device: torch.device, rng) -> float:
+def phase_parity_k3(device: torch.device, rng, mvsec_rng) -> float:
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.kernels import launch_counts
 
     worst = 0.0
-    cases = [(lvl, dtype, B) for dtype in (torch.float32, torch.bfloat16) for lvl in range(3) for B in (1, 2)]
-    for lvl, dtype, B in cases:
-        (cin, h, w), widths, pool, emit_full = K3_LEVELS[lvl]
-        x = torch.from_numpy(rng.standard_normal((B, cin, h, w)).astype(np.float32)).to(device)
-        ws, bs = conv_params(rng, (cin,) + widths[:-1], widths, device)
+    # the pyramid's levels at 720x1280 and at MVSEC's 256x256 crop
+    cases = [(levels, lvl, dtype, B) for levels in (K3_LEVELS, K3_LEVELS_MVSEC)
+             for dtype in (torch.float32, torch.bfloat16) for lvl in range(3) for B in (1, 2)]
+    for levels, lvl, dtype, B in cases:
+        (cin, h, w), widths, pool, emit_full = levels[lvl]
+        g = rng if levels is K3_LEVELS else mvsec_rng
+        x = torch.from_numpy(g.standard_normal((B, cin, h, w)).astype(np.float32)).to(device)
+        ws, bs = conv_params(g, (cin,) + widths[:-1], widths, device)
         before = launch_counts["fused_convs_pool"]
         full, pooled = k3.fused_convs(x, ws, bs, pool, dtype, emit_full)
         require(launch_counts["fused_convs_pool"] == before + 1,
@@ -882,7 +996,7 @@ def phase_parity_k3(device: torch.device, rng) -> float:
     return worst
 
 
-def phase_parity_k4(device: torch.device, rng) -> float:
+def phase_parity_k4(device: torch.device, rng, mvsec_rng) -> float:
     from eemflow_tpu_torch.kernels import coarse_head as k4
     from eemflow_tpu_torch.models.eemflow import INDEX_53
     from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
@@ -897,12 +1011,15 @@ def phase_parity_k4(device: torch.device, rng) -> float:
     cases = [(g, B, (12, 20), None) for g in (5, 1) for B in (1, 2)]
     cases += [(5, 2, (12, 20), R) for R in (8, 16) if R != info["cluster_size"] and info[f"max_clusters_{R}"]]
     cases += [(5, 2, (8, 15), None), (5, 1, (17, 30), None)]
+    # MVSEC's 256x256 crop: 4x4 levels, the +-4 window wider than the grid
+    cases += [(5, 1, (4, 4), None), (5, 2, (4, 4), None), (1, 1, (4, 4), None)]
     weights = {}
     for groups, B, (h, w), R in cases:
         if groups not in weights:
             weights[groups] = HeadWeights(head_params(rng, groups, device), groups)
+        g = mvsec_rng if (h, w) == (4, 4) else rng
         f1, f2 = (
-            [torch.from_numpy(rng.standard_normal((B, h, w, c)).astype(np.float32)).to(device)
+            [torch.from_numpy(g.standard_normal((B, h, w, c)).astype(np.float32)).to(device)
              for c in HEAD_CHANNELS]
             for _ in range(2)
         )
@@ -1713,7 +1830,7 @@ def times_train(device: torch.device, tmp: str, two_volume: dict) -> dict:
     return out
 
 
-def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict, two_volume: dict) -> tuple:
+def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict, two_volume: dict, mvsec: dict) -> tuple:
     from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
     from eemflow_tpu_torch.models.registry import get_eval_model
 
@@ -1736,10 +1853,14 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict, two_
     plus_row = times_plus(device, tmp, errs, launches)
     times_serve(device, tmp)
     train = times_train(device, tmp, two_volume)
+    mvsec_rows = times_mvsec(device, tmp, mvsec)
     # a two-volume train step's launches (phase 3b's counts)
     for row, key in ((k1_row, "voxel_scatter_per_train_step"), (k2_row, "local_corr_per_train_step")):
         for name, info in two_volume.items():
             row[f"launches_per_train_step_{name}"] = info[key]
+    # each kernel at MVSEC's shapes, with its launches on the MVSEC paths
+    for row in (k1_row, k2_row, k3_row, k4_row, k5_row):
+        row.update(mvsec_rows[row["name"]])
     return [k1_row, k2_row, k3_row, plus_row, k4_row, k5_row], train
 
 
@@ -2651,6 +2772,446 @@ def times_k3_k4(device, model, x1, x2, errs: dict, launches: dict):
     return k3_row, k4_row
 
 
+# MVSEC (phase 3c): the synthetic sequences' frames (the eval CLIs' --frames
+# range: two samples a run; six training samples, one B=6 batch), 30,000
+# events a frame interval at MVSEC's timestamp magnitude (seconds since the
+# epoch), the eval paths with the K1/K2/K3/K4 calls each makes on the two
+# samples, the card's AEE against the CPU's, and the training runs
+MVSEC_T0 = 1.5e9
+MVSEC_EVAL_FRAMES = (3, 5)
+MVSEC_TRAIN_FRAMES = (3, 9)
+MVSEC_TRAIN_SEQUENCE = "outdoor_day2"
+MVSEC_EVAL_CASES = (("dt1", "indoor_flying1", "dense"), ("dt1", "outdoor_day1", "sparse"),
+                    ("dt4", "indoor_flying1", "dense"))
+# (label, flags, K1 calls, K2 launches, K3 launches, K4 launches) on two samples
+MVSEC_EVAL_PATHS = (
+    ("host voxelize", [], 0, 2, 0, 0),
+    ("device voxelize", ["--device_voxelize"], 4, 2, 0, 0),
+    ("--fast", ["--fast"], 0, 0, 12, 2),
+    ("device voxelize, eval_batch 2", ["--device_voxelize", "--eval_batch", "2"], 2, 1, 0, 0),
+)
+MVSEC_CPU_TOL = 1e-5
+# (model, config, flags, K1 calls and K2 launches a step, learning rate of
+# the loss check): ERAFT's own recipe on the host path (the augmentor's
+# resize branch), EEMFlow on the device path (K1 over the whole frame, then
+# the flips and the crop on the card)
+MVSEC_TRAIN = (
+    ("eraft", "mvsec_eraft.json", [], 0, 0, 1e-4),
+    ("eemflow", "mvsec_event_flow_dense.json", ["--device_voxelize"], 2, 1, 1e-3),
+)
+MVSEC_TRAIN_STEPS = 4  # two epochs of two steps
+
+
+def make_mvsec_fixture(base: str, seed: int = 55, n_events: int = 30000) -> str:
+    """Synthetic MVSEC sequences at 260x346 written by the port's own HDF5
+    writer: ``event/{i+1:06d}.h5`` tables (timestamps MVSEC_T0 + i·0.03 s)
+    and ``flowgt_dt1``/``flowgt_dt4`` ``{i}.npy``, for the two eval
+    sequences (an indoor one, an outdoor one for ``is_car``) and the train
+    sequence; enough frames for dt4's trailing windows."""
+    from eemflow_tpu_torch.events.io import write_events_h5
+
+    rng = np.random.default_rng(seed)
+    root = os.path.join(base, "mvsec")
+    for seq, last in (("indoor_flying1", 13), ("outdoor_day1", 13), (MVSEC_TRAIN_SEQUENCE, 11)):
+        d = os.path.join(root, seq)
+        for sub in ("event", "flowgt_dt1", "flowgt_dt4"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for i in range(MVSEC_EVAL_FRAMES[0], last):
+            ev = np.stack([
+                MVSEC_T0 + np.sort(rng.uniform(i * 0.03, (i + 1) * 0.03, n_events)),
+                rng.integers(0, MVSEC_W, n_events).astype(np.float64),
+                rng.integers(0, MVSEC_H, n_events).astype(np.float64),
+                rng.integers(0, 2, n_events).astype(np.float64),
+            ], axis=1)
+            write_events_h5(ev, os.path.join(d, "event", f"{i + 1:06d}.h5"))
+            for sub in ("flowgt_dt1", "flowgt_dt4"):
+                np.save(os.path.join(d, sub, f"{i}.npy"),
+                        (rng.standard_normal((2, MVSEC_H, MVSEC_W)) * 2).astype(np.float32))
+    return root
+
+
+class mvsec_train_frames:
+    """The train sequence's valid range set to the fixture's frames (the
+    training CLI, like JAX's, has no --frames), restored on exit."""
+
+    def __enter__(self):
+        import eemflow_tpu_torch.data.mvsec as mvsec
+
+        self.table = mvsec.VALID_TIME_INDEX
+        self.old = self.table[MVSEC_TRAIN_SEQUENCE]
+        self.table[MVSEC_TRAIN_SEQUENCE] = [MVSEC_TRAIN_FRAMES]
+
+    def __exit__(self, *exc):
+        self.table[MVSEC_TRAIN_SEQUENCE] = self.old
+
+
+def mvsec_eval_args(root: str, tmp: str, device, dt: str, seq: str, eval_type: str, model: str = "eemflow",
+                    ckpt: str = GOLDEN_CKPT) -> list:
+    return ["-model", model, "-int", dt, "--sequence", seq, "--eval_type", eval_type, "--data_root", root,
+            "--checkpoint", ckpt, "--frames", *map(str, MVSEC_EVAL_FRAMES), "--stride", "1",
+            "--save_dir", os.path.join(tmp, "out_mvsec"), "--device", str(device)]
+
+
+def phase_mvsec(device: torch.device, tmp: str) -> dict:
+    """MVSEC through the port's CLIs at 260x346 (voxelized whole, evaluated
+    on the 256x256 centre crop): ``test_mvsec`` with the golden EEMFlow
+    weights on dt1 dense, dt1 sparse on an outdoor sequence (``is_car``) and
+    dt4, each on the host path, with ``--device_voxelize`` (K1 and the crop),
+    ``--fast`` (K3, K4) and ``--device_voxelize --eval_batch 2``, each run's
+    launch counts set to 0 just before it and read just after, its AEE
+    against the host path's and the host path's against the port's CPU run;
+    ERAFT (golden weights) on the module path and with ``fused_update`` (K5
+    at 32x32); then ``train_mvsec``: ERAFT with ``configs/mvsec_eraft.json``
+    (B=6, the host path's resize augmentation) and EEMFlow with
+    ``--device_voxelize`` (K1 twice a step, the crop on the card), in bf16
+    (the configs' mixed precision) and float32, and 20 steps of each on one
+    batch lowering its loss."""
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.tools.test_mvsec import main as test_mvsec
+    from eemflow_tpu_torch.tools.train_mvsec import main as train_mvsec
+
+    phase("3c MVSEC: the MVSEC eval and training CLIs at 260x346 (crop 256x256), golden checkpoints")
+    t_phase = time.perf_counter()
+    root = make_mvsec_fixture(tmp)
+    say(f"MVSEC fixture: 260x346, 30,000 events a frame interval, timestamps from {MVSEC_T0:.1e} s, written "
+        f"in {time.perf_counter() - t_phase:.1f} s")
+    launches = {k: 0 for k in ("voxel_scatter", "local_corr", "fused_convs_pool", "coarse_head", "update_block")}
+    kernel_of = (("voxel_scatter", 2), ("local_corr", 3), ("fused_convs_pool", 4), ("coarse_head", 5))
+    aee = {}
+    for dt, seq, eval_type in MVSEC_EVAL_CASES:
+        case = f"{dt} {eval_type} {seq}"
+        for path in MVSEC_EVAL_PATHS:
+            label, extra = path[0], path[1]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = test_mvsec(mvsec_eval_args(root, tmp, device, dt, seq, eval_type) + extra)
+            counts = dict(launch_counts)
+            aee[case, label] = res["AEE"]
+            say(f"MVSEC {case}, {label}: AEE {res['AEE']:.7f} over {res['n_samples']} samples in "
+                f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+            want = {k: path[i] for k, i in kernel_of}
+            require(res["n_samples"] == 2 and all(counts[k] == v for k, v in want.items()),
+                    f"MVSEC {case} {label}: launches {counts}, not {want}")
+            for k in want:
+                launches[k] += counts[k]
+            host = aee[case, MVSEC_EVAL_PATHS[0][0]]
+            say(f"MVSEC {case}, {label} vs host path: |Δ| {abs(res['AEE'] - host):.3e} (tolerance {PATH_TOL:g})")
+            require(np.isfinite(res["AEE"]) and abs(res["AEE"] - host) < PATH_TOL,
+                    f"MVSEC {case}: {label}'s AEE differs from the host path's")
+        cpu = test_mvsec(mvsec_eval_args(root, tmp, "cpu", dt, seq, eval_type))["AEE"]
+        host = aee[case, MVSEC_EVAL_PATHS[0][0]]
+        say(f"MVSEC {case}: the card's host-path AEE {host:.7f} against the port's CPU run {cpu:.7f}: |Δ| "
+            f"{abs(host - cpu):.3e} (tolerance {MVSEC_CPU_TOL:g})")
+        require(abs(host - cpu) < MVSEC_CPU_TOL, f"MVSEC {case}: the card's AEE differs from the CPU's")
+
+    # ERAFT: the module path against K5 at the crop's 32x32 grid
+    cfg = os.path.join(tmp, "mvsec_eraft_fused.json")
+    with open(cfg, "w") as f:
+        json.dump({"fused_update": True}, f)
+    eraft = {}
+    for label, extra in (("module path", []), ("fused_update", ["--config", cfg])):
+        reset_launch_counts()
+        res = test_mvsec(mvsec_eval_args(root, tmp, device, "dt1", "indoor_flying1", "dense", "eraft", ERAFT_CKPT)
+                         + extra)
+        eraft[label] = (res["AEE"], launch_counts["update_block"], launch_counts["update_block_relayout"])
+        say(f"MVSEC ERAFT dt1 dense, {label}: AEE {res['AEE']:.7f} over {res['n_samples']} samples; K5 launches "
+            f"{launch_counts['update_block']}, inputs relaid {launch_counts['update_block_relayout']}")
+    (std, k5_std, _), (fused, k5, relayout) = eraft["module path"], eraft["fused_update"]
+    say(f"MVSEC ERAFT fused_update vs module path: AEE |Δ| {abs(fused - std):.3e} (tolerance {ERAFT_FUSED_TOL:g}); "
+        f"K5 at the 32x32 grid, 2 samples x 12 iterations x 2 entry points")
+    require(abs(fused - std) < ERAFT_FUSED_TOL and k5_std == 0 and k5 == 48 and relayout == 0,
+            "MVSEC ERAFT: fused_update disagrees with the module path or did not launch K5 48 times")
+    launches["update_block"] = k5
+
+    # training, each run's launch counts set to 0 just before it
+    train = {}
+    with mvsec_train_frames():
+        for name, config, extra, k1_step, k2_step, lr in MVSEC_TRAIN:
+            for label, mp in (("bf16 (the config)", True), ("float32", False)):
+                save = os.path.join(tmp, f"mvsec_train_{name}_{int(mp)}")
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                state = train_mvsec([
+                    "-model", name, "--config", train_config(tmp, mp, config), "--data_root", root,
+                    "--sequence", MVSEC_TRAIN_SEQUENCE, "-bs", str(TRAIN_BATCH), "--train_iters",
+                    str(MVSEC_TRAIN_STEPS), "--val_iters", str(MVSEC_TRAIN_STEPS // 2), "--save_dir", save,
+                    "--device", str(device), *extra,
+                ])
+                counts = dict(launch_counts)
+                run = os.path.join(save, os.listdir(save)[0])
+                recs = [r for r in read_jsonl(os.path.join(run, "metrics.jsonl")) if r["kind"] == "epoch"]
+                say(f"MVSEC train CLI {name} {label}, B={TRAIN_BATCH}{' ' + ' '.join(extra) if extra else ''}: "
+                    f"{MVSEC_TRAIN_STEPS} steps in {time.perf_counter() - t0:.1f} s; epochs "
+                    f"{[(r['epoch'], r['n_steps'], r['mean_loss']) for r in recs]}; launches {counts}")
+                require(state.step == MVSEC_TRAIN_STEPS and len(recs) == 2
+                        and all(np.isfinite(r["mean_loss"]) for r in recs)
+                        and all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+                        f"MVSEC {name} {label}: the run did not take its steps with finite losses")
+                require(counts["voxel_scatter"] == k1_step * MVSEC_TRAIN_STEPS
+                        and counts["local_corr"] == k2_step * MVSEC_TRAIN_STEPS
+                        and counts["fused_convs_pool"] == counts["coarse_head"] == counts["update_block"] == 0,
+                        f"MVSEC {name} {label}: launches {counts}, not K1 {k1_step} and K2 {k2_step} a step")
+                del state
+            train[name] = (k1_step, k2_step)
+            mvsec_steps_lower_the_loss(device, root, name, config, extra, lr)
+    torch.cuda.empty_cache()
+    say(f"phase 3c took {time.perf_counter() - t_phase:.1f} s; launches on the MVSEC eval paths {launches}")
+    launches["train"] = train
+    return launches
+
+
+def mvsec_train_batch(root: str, device, config: str, raw: bool, seed: int = 0) -> dict:
+    """One B=6 batch of the MVSEC train split as the training CLI makes it
+    (the config's augmentation; raw events with flips and crop offsets, or
+    host grids through the resize branch), on the card."""
+    from eemflow_tpu_torch.data.loader import collate
+    from eemflow_tpu_torch.data.mvsec import MvsecEventFlow
+    from eemflow_tpu_torch.train.trainer import batch_to_device
+
+    with open(os.path.join(REPO, "configs", config)) as f:
+        aug = json.load(f)["data_loader"]["train"]["args"]["aug_params"]
+    with mvsec_train_frames():
+        ds = MvsecEventFlow(root, MVSEC_TRAIN_SEQUENCE, train=True, aug_params=aug, raw_events=raw,
+                            bucket_rungs=4, rng=np.random.default_rng(seed))
+        return batch_to_device(collate([ds[i] for i in range(TRAIN_BATCH)]), device)
+
+
+def mvsec_train_state(device, name: str, lr: float):
+    from eemflow_tpu_torch.models.registry import get_model
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state
+
+    return create_train_state(get_model(name, n_first_channels=BINS), 0, make_optimizer(lr, num_steps=1000),
+                              device=device)
+
+
+def mvsec_step(name: str, mixed_precision: bool):
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.train.trainer import make_train_step
+
+    pre = (make_device_preprocess(BINS, MVSEC_H, MVSEC_W, crop_size=(MVSEC_CROP, MVSEC_CROP))
+           if name == "eemflow" else None)
+    return make_train_step(preprocess=pre, mixed_precision=mixed_precision)
+
+
+def mvsec_steps_lower_the_loss(device, root: str, name: str, config: str, extra: list, lr: float) -> None:
+    """20 steps on one fixed MVSEC B=6 batch lower its loss, in bf16 and in
+    float32."""
+    data = mvsec_train_batch(root, device, config, raw="--device_voxelize" in extra)
+    for label, mp in (("bf16", True), ("float32", False)):
+        state = mvsec_train_state(device, name, lr)
+        step = mvsec_step(name, mp)
+        losses = [float(step(state, data)[1]["loss"]) for _ in range(20)]
+        say(f"20 {label} MVSEC {name} steps (lr {lr:g}) on one 256x256 B={TRAIN_BATCH} batch: loss "
+            f"{losses[0]:.6f} → {losses[-1]:.6f} (every 5th: {[round(x, 6) for x in losses[::5]]})")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"20 {label} MVSEC {name} steps on one batch did not lower its loss")
+
+
+def times_mvsec(device, tmp: str, launches: dict) -> dict:
+    """Phase 4 at MVSEC's shapes: each kernel on the device (queued; K3, K4
+    and K5 also after an L2 flush) beside its bound, its plain version and
+    the library call where there is one; the 256x256 B=1 forwards of EEMFlow
+    (standard and ``--fast``) and ERAFT (module path and K5) back to back and
+    their device busy time (one profiled run); one whole eval sample; the
+    two train steps (ms back to back, busy share, peak memory).  Returns
+    each kernel's MVSEC fields for the ``kernels`` line."""
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.data.mvsec import MvsecEventFlow
+    from eemflow_tpu_torch.eval.runner import Tester
+    from eemflow_tpu_torch.events.voxel import normalize_voxel_grid, voxel_votes, voxelize_plain
+    from eemflow_tpu_torch.kernels import coarse_head as k4
+    from eemflow_tpu_torch.kernels import fused_convs as k3
+    from eemflow_tpu_torch.kernels import local_corr as k2
+    from eemflow_tpu_torch.kernels import update_block as k5
+    from eemflow_tpu_torch.kernels import voxel_scatter as k1
+    from eemflow_tpu_torch.kernels.fused_convs import pack_chain
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
+    from eemflow_tpu_torch.ops.update_block import gru_flowhead_plain, make_fused_update, motion_encoder_plain
+    from eemflow_tpu_torch.tools.update_block_bound import update_block_work
+
+    rng = np.random.default_rng(14)
+    hw = MVSEC_H * MVSEC_W
+    rows = {}
+    # K1: one frame at 260x346, a dt1 and a dt4 window (the eval path's call)
+    k1_fields = {"mvsec_launches": launches["voxel_scatter"],
+          "mvsec_launches_per_train_step_eemflow": launches["train"]["eemflow"][0]}
+    for n_events, tag in ((30_000, "dt1"), (120_000, "dt4")):
+        ev, nv = k1_batch(rng, (n_events,), N=1 << 17, h=MVSEC_H, w=MVSEC_W)
+        e, n = torch.from_numpy(ev).to(device), torch.from_numpy(nv).to(device)
+        idx, val = voxel_votes(e, n, BINS, MVSEC_H, MVSEC_W)
+        nbytes = n_events * 16 + BINS * hw * 4
+        bound, by = bound_ms(nbytes, 2 * idx.numel())
+
+        def library():
+            g = torch.zeros(BINS * hw, device=device)
+            g.index_put_((idx,), val, accumulate=True)
+            return normalize_voxel_grid(g.view(1, BINS, MVSEC_H, MVSEC_W))
+
+        fn = lambda: k1.voxelize(e, n, BINS, MVSEC_H, MVSEC_W)
+        dev, wrap = queued_ms(fn, reps=20), cuda_ms(fn)
+        plain, lib = cuda_ms(lambda: voxelize_plain(e, n, BINS, MVSEC_H, MVSEC_W), reps=5), cuda_ms(library)
+        say(f"MVSEC K1 voxelize B=1 260x346 {tag} window ({n_events} events): {dev:.4f} ms on the device "
+            f"(queued), {wrap:.4f} ms per wrapper call back to back; bound {bound:.5f} ms ({by}: {nbytes} B); "
+            f"index_put_ + normalize_voxel_grid {lib:.4f} ms; plain version {plain:.4f} ms")
+        k1_fields.update({f"mvsec_ms_{tag}": dev, f"mvsec_wrapper_ms_{tag}": wrap, f"mvsec_bound_ms_{tag}": bound,
+                   f"mvsec_plain_ms_{tag}": plain, f"mvsec_library_ms_{tag}": lib})
+    rows["voxel_scatter"] = k1_fields
+
+    sd = to_state_dict(load_torch_checkpoint(GOLDEN_CKPT))
+    model = get_eval_model("eemflow")
+    model.load_state_dict(sd)
+    model.to(device)
+    # K2: the three 4x4 levels of a 256x256 B=1 forward, one launch
+    p1, p2 = forward_pooled(model, 1, device, seed=30, h=MVSEC_CROP, w=MVSEC_CROP)
+    K = len(model.corr_indices)
+    nbytes, flops = k2_work(p1, K, 4)
+    bound, by = bound_ms(nbytes, flops)
+    with torch.inference_mode():
+        step = lambda: model._corrs(p1, p2)
+        plain = lambda: [k2.plain(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), model.max_displacement,
+                                  model.corr_indices) for a, b in zip(p1, p2)]
+        dev, wrap, plain_ms = queued_ms(step, reps=50), cuda_ms(step, reps=50), cuda_ms(plain, reps=10)
+    say(f"MVSEC K2 local_corr_levels, the three 4x4 levels of a 256x256 B=1 forward (K={K}): {dev:.4f} ms on the "
+        f"device (queued), {wrap:.4f} ms per call back to back; bound {bound:.6f} ms ({by}: {nbytes} B, {flops} "
+        f"FLOP); plain version {plain_ms:.4f} ms")
+    rows["local_corr"] = {"mvsec_launches": launches["local_corr"], "mvsec_ms": dev, "mvsec_wrapper_ms": wrap,
+                          "mvsec_bound_ms": bound, "mvsec_plain_ms": plain_ms,
+                          "mvsec_launches_per_train_step_eemflow": launches["train"]["eemflow"][1]}
+
+    # K3: the six calls of a 256x256 B=1 pyramid (three levels, two frames)
+    calls, flops, nbytes = [], 0, 0
+    for (cin, h, w), widths, pool, emit_full in K3_LEVELS_MVSEC:
+        ws, bs = conv_params(rng, (cin,) + widths[:-1], widths, device)
+        packed = pack_chain(ws, bs, False, device, pool)  # as the model packs its weights once
+        for _ in range(2):
+            x = torch.from_numpy(rng.standard_normal((1, cin, h, w)).astype(np.float32)).to(device)
+            calls.append((x, ws, bs, pool, emit_full, packed))
+            f_, b_ = k3_flops_bytes(1, cin, h, w, widths, emit_full, pool)
+            flops, nbytes = flops + f_, nbytes + b_
+    with torch.inference_mode():
+        six = lambda: [k3.fused_convs(x, ws, bs, pool, torch.float32, full, packed=packed)
+                       for x, ws, bs, pool, full, packed in calls]
+        six_plain = lambda: [k3.plain(x, ws, bs, pool, torch.float32, full) for x, ws, bs, pool, full, _ in calls]
+        dev, warm = cold_queued_ms(six, 10, device), queued_ms(six, reps=10)
+        wrap, plain_ms = cuda_ms(six, reps=10), cuda_ms(six_plain, reps=5)
+    bound, by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+    say(f"MVSEC K3 fused_convs_pool, the six calls of a 256x256 B=1 pyramid, float32 (split TF32): {dev:.4f} ms on "
+        f"the device after an L2 flush ({warm:.4f} warm), {wrap:.4f} ms per six wrapper calls back to back; bound "
+        f"{bound:.5f} ms ({by}: 3 x {flops} FLOP at the TF32 peak, {nbytes} B); plain version {plain_ms:.4f} ms")
+    rows["fused_convs_pool"] = {"mvsec_launches": launches["fused_convs_pool"], "mvsec_ms": dev,
+                                "mvsec_warm_ms": warm, "mvsec_wrapper_ms": wrap, "mvsec_bound_ms": bound,
+                                "mvsec_plain_ms": plain_ms}
+
+    # K4: the coarse stage on the three 4x4 levels of a B=1 forward
+    weights = HeadWeights(head_params(rng, 5, device), 5)
+    f1, f2 = ([torch.from_numpy(rng.standard_normal((1, 4, 4, c)).astype(np.float32)).to(device)
+               for c in HEAD_CHANNELS] for _ in range(2))
+    packed = weights.kernel(device)
+    flops, nbytes = k4_flops_bytes(1, 4, 4, packed, len(INDEX_53))
+    bound, by = bound_ms(nbytes, flops)
+    with torch.inference_mode():
+        head = lambda: k4._launch(f1, f2, weights, INDEX_53, 4, None)
+        dev, warm, wrap = cold_queued_ms(head, 20, device), queued_ms(head, reps=20), cuda_ms(head, reps=20)
+        plain_ms = cuda_ms(lambda: coarse_head(f1, f2, weights, 5, INDEX_53, 4, impl="plain"), reps=10)
+    say(f"MVSEC K4 coarse_head B=1, the three 4x4 levels (the +-4 window wider than the grid): {dev:.4f} ms on the "
+        f"device after an L2 flush ({warm:.4f} warm), {wrap:.4f} ms per wrapper call back to back; bound "
+        f"{bound:.6f} ms ({by}); plain version {plain_ms:.4f} ms")
+    rows["coarse_head"] = {"mvsec_launches": launches["coarse_head"], "mvsec_ms": dev, "mvsec_warm_ms": warm,
+                           "mvsec_wrapper_ms": wrap, "mvsec_bound_ms": bound, "mvsec_plain_ms": plain_ms}
+
+    # K5: one pair at ERAFT's 32x32 grid of a 256x256 crop, float32
+    block = k5_block(rng, device)
+    fused = make_fused_update(block, torch.float32)
+    net, inp, corr, flow = k5_inputs(rng, 32, 32, device)
+    flops, nbytes = update_block_work(32, 32, 1)
+    bound, by = bound_ms(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+    with torch.inference_mode():
+        pair = lambda: k5.update_gru(net, inp, k5.update_motion(corr, flow, fused), fused)
+        plain = lambda: gru_flowhead_plain(net, inp, motion_encoder_plain(corr, flow, fused.motion, torch.float32),
+                                           fused.gru, torch.float32)
+        dev, warm, wrap = cold_queued_ms(pair, 10, device), queued_ms(pair, reps=10), cuda_ms(pair, reps=10)
+        plain_ms = cuda_ms(plain, reps=10)
+    say(f"MVSEC K5 update_block pair B=1 32x32 float32: {dev:.4f} ms on the device after an L2 flush ({warm:.4f} "
+        f"warm), {wrap:.4f} ms per wrapper pair back to back; bound {bound:.5f} ms ({by}: 3 x {flops} FLOP at the "
+        f"TF32 peak, {nbytes} B); plain version {plain_ms:.4f} ms")
+    rows["update_block"] = {"mvsec_launches": launches["update_block"], "mvsec_ms": dev, "mvsec_warm_ms": warm,
+                            "mvsec_wrapper_ms": wrap, "mvsec_bound_ms": bound, "mvsec_plain_ms": plain_ms}
+
+    # the 256x256 B=1 forwards
+    x1, x2 = (torch.randn(1, MVSEC_CROP, MVSEC_CROP, BINS, device=device) for _ in range(2))
+    eraft_sd = to_state_dict(load_torch_checkpoint(ERAFT_CKPT))
+    for name, label, kw, state in (("eemflow", "standard", {}, sd), ("eemflow", "--fast", {"fast_head": True,
+                                   "fast_pyramid": True}, sd), ("eraft", "module path", {}, eraft_sd),
+                                   ("eraft", "fused_update (K5)", {"fused_update": True}, eraft_sd)):
+        m = get_eval_model(name, **kw)
+        m.load_state_dict(state)
+        m.to(device)
+
+        def forward(m=m):
+            with torch.inference_mode():
+                return m(x1, x2)[1][-1]
+
+        require(tuple(forward().shape) == (1, MVSEC_CROP, MVSEC_CROP, 2) and bool(torch.isfinite(forward()).all()),
+                f"the 256x256 {name} {label} forward is not finite or has the wrong shape")
+        b2b = cuda_ms(forward, reps=10)
+        prof = profiled_step(forward, reps=5, tmp=tmp)
+        say(f"MVSEC forward {name} 256x256 B=1, {label}: {b2b:.3f} ms back to back ({1e3 / b2b:.1f} fps); the device "
+            f"busy {prof['busy_ms']:.3f} ms of {prof['profiled_ms']:.3f} ms a profiled call "
+            f"({100 * prof['busy_share']:.1f}%, {prof['device_ops']:.0f} kernels and copies)")
+        del m
+
+    # one whole eval sample, host and device voxelize (dt1)
+    root = os.path.join(tmp, "mvsec")
+    table = {"indoor_flying1": [MVSEC_EVAL_FRAMES]}
+    for label, raw in (("host voxelize", False), ("device voxelize", True)):
+        ds = MvsecEventFlow(root, "indoor_flying1", train=False, raw_events=raw, valid_time_index=table)
+        sample = ds[0]
+        pre = (make_device_preprocess(BINS, MVSEC_H, MVSEC_W, crop_size=(MVSEC_CROP, MVSEC_CROP)) if raw else None)
+        tester = Tester(model, device, preprocess=pre)
+        for _ in range(3):
+            tester.run_sample(sample)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tester.run_sample(sample)
+        ms = (time.perf_counter() - t0) / 20 * 1e3
+        t0 = time.perf_counter()
+        for _ in range(5):
+            ds[0]
+        read_ms = (time.perf_counter() - t0) / 5 * 1e3
+        say(f"MVSEC whole eval sample dt1, {label} (arrays from the host → {'K1 voxelize x2 + crop → ' if raw else ''}"
+            f"forward → flow on the host): {ms:.3f} ms ({1e3 / ms:.1f} fps); the dataset's read of the sample "
+            f"{read_ms:.3f} ms on the host")
+
+    # the two train steps at B=6
+    for name, config, extra, _, _, lr in MVSEC_TRAIN:
+        data = mvsec_train_batch(root, device, config, raw="--device_voxelize" in extra)
+        for label, mp in (("bf16", True), ("float32", False)):
+            state = mvsec_train_state(device, name, lr)
+            step = mvsec_step(name, mp)
+            run = lambda: step(state, data)
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            b2b = cuda_ms(run, reps=10, warmup=1)
+            prof = profiled_step(run, reps=3, tmp=tmp)
+            say(f"MVSEC train step {name} 256x256 B={TRAIN_BATCH}{' device voxelize' if extra else ' host grids'}, "
+                f"{label}: {b2b:.3f} ms back to back ({TRAIN_BATCH * 1e3 / b2b:.1f} samples/s); under torch.profiler "
+                f"{prof['profiled_ms']:.3f} ms a step, the device busy {prof['busy_ms']:.3f} ms of it "
+                f"({100 * prof['busy_share']:.1f}%, {prof['device_ops']:.0f} kernels and copies); peak allocated "
+                f"{peak / 2**30:.3f} GiB")
+            del state, step, run
+            torch.cuda.empty_cache()
+    return rows
+
+
 def run(device: torch.device) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2662,7 +3223,8 @@ def run(device: torch.device) -> dict:
         launches = phase_end_to_end(device, tmp)
         launches.update(phase_train(device, tmp))
         two_volume = phase_train_two_volume(device, tmp)
-        kernels, train = phase_times(device, tmp, errs, launches, two_volume)
+        mvsec = phase_mvsec(device, tmp)
+        kernels, train = phase_times(device, tmp, errs, launches, two_volume, mvsec)
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"train_step": train}))
     say(json.dumps({"kernels": kernels}))

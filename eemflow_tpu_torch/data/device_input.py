@@ -10,20 +10,26 @@ contract (the datasets' raw-event mode):
     time-sorted, relative timestamps; ``n_old``/``n_new`` [B] int32;
   * optional ``flip_h``/``flip_v`` [B] bool, the flips drawn on the host
     (which flipped the label with the same draws,
-    ``augment.FlowAugmentor.draw_flips``).
+    ``augment.FlowAugmentor.draw_flips``);
+  * optional ``crop_y``/``crop_x`` [B] int32 crop offsets (the MVSEC
+    raw-event training path, which crops the label on the host with the
+    same draws, ``augment.FlowAugmentor.draw_crop``); without them a
+    ``crop_size`` preprocess takes the static centre crop of MVSEC's
+    validation protocol.
 
 As on the host path, the full frame is voxelized first (the normalization
-statistics are the whole grid's) and then flipped, so both paths give the
-same grids for the same draws.  The HREM training path only flips; the
-crops and the event mask of the JAX step come with the slices that run
-them (``ROADMAP.md``).  The step takes no
-gradient: the train step runs it under ``torch.no_grad()``.
+statistics are the whole grid's, 260×346 on MVSEC), then flipped, then
+cropped, so both paths give the same grids for the same draws.  The JAX
+step's on-device event mask (``event_mask``) is left out: the MVSEC CLIs
+take ``event_valid`` from the host, which computes it from the old
+window's events before the crop.  The step takes no gradient: the train
+step runs it under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -31,7 +37,7 @@ from eemflow_tpu_torch.events.voxel import voxelize_batch_nhwc
 
 logger = logging.getLogger("eemflow_tpu_torch")
 
-_RAW_KEYS = ("events_old", "events_new", "n_old", "n_new", "flip_h", "flip_v")
+_RAW_KEYS = ("events_old", "events_new", "n_old", "n_new", "flip_h", "flip_v", "crop_y", "crop_x")
 
 
 class EventOverflowCounter:
@@ -74,12 +80,33 @@ def flip_batch(grids: torch.Tensor, flip_h: torch.Tensor, flip_v: torch.Tensor) 
     return torch.where(flip_v.view(-1, 1, 1, 1), grids.flip(1), grids)
 
 
+def crop_batch(
+    grids: torch.Tensor, crop_y: torch.Tensor, crop_x: torch.Tensor, crop_size: Tuple[int, int]
+) -> torch.Tensor:
+    """Per-sample crop of [B, H, W, C] grids to ``crop_size`` at the offsets
+    ``crop_y``/``crop_x`` [B], gathered on the device (no host sync).  An
+    offset is clamped so that the crop fits, as ``jax.lax.dynamic_slice``
+    clamps it."""
+    B, H, W, _ = grids.shape
+    ch, cw = crop_size
+    if ch > H or cw > W:
+        raise ValueError(f"crop_batch: a {ch}x{cw} crop of a {H}x{W} grid")
+    dev = grids.device
+    rows = crop_y.to(dev, torch.int64).clamp(0, H - ch)[:, None] + torch.arange(ch, device=dev)
+    cols = crop_x.to(dev, torch.int64).clamp(0, W - cw)[:, None] + torch.arange(cw, device=dev)
+    b = torch.arange(B, device=dev)[:, None, None]
+    return grids[b, rows[:, :, None], cols[:, None, :]]
+
+
 def make_device_preprocess(
-    num_bins: int, height: int, width: int
+    num_bins: int, height: int, width: int, crop_size: Optional[Tuple[int, int]] = None
 ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
     """fn(batch) → batch with ``event_volume_old/new`` ([B, H, W, bins]
-    NHWC) in place of the raw-event keys, flipped where the batch has flip
-    flags.  A host-voxelized batch passes through unchanged."""
+    NHWC) in place of the raw-event keys: the full ``height``×``width``
+    frame voxelized, flipped where the batch has flip flags, then cropped to
+    ``crop_size`` when one is given (at the batch's ``crop_y``/``crop_x``,
+    or in the centre without them).  A host-voxelized batch passes through
+    unchanged."""
 
     def preprocess(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if "events_old" not in batch:
@@ -90,6 +117,14 @@ def make_device_preprocess(
         if "flip_h" in batch:
             fh, fv = batch["flip_h"], batch["flip_v"]
             ev_old, ev_new = flip_batch(ev_old, fh, fv), flip_batch(ev_new, fh, fv)
+        if crop_size is not None:
+            cy, cx = batch.get("crop_y"), batch.get("crop_x")
+            if cy is None:  # the static centre crop (MVSEC's validation protocol)
+                B = ev_old.shape[0]
+                cy = torch.full((B,), (height - crop_size[0]) // 2, dtype=torch.int64, device=ev_old.device)
+                cx = torch.full((B,), (width - crop_size[1]) // 2, dtype=torch.int64, device=ev_old.device)
+            ev_old = crop_batch(ev_old, cy, cx, crop_size)
+            ev_new = crop_batch(ev_new, cy, cx, crop_size)
         out["event_volume_old"] = ev_old
         out["event_volume_new"] = ev_new
         return out

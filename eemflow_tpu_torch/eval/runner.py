@@ -57,7 +57,11 @@ def collate(samples) -> Dict[str, np.ndarray]:
 
 class Tester:
     """Evaluation engine for the ``two_volume`` family: ``model(ev_old,
-    ev_new)`` → ``(maps, [flow, ...])``, final flow [B, H, W, 2]."""
+    ev_new)`` → ``(maps, [flow, ...])``, final flow [B, H, W, 2].  Each
+    sample is scored by ``flow_error`` under the dataset's
+    ``evaluation_type`` (dense, or sparse: masked to the sample's
+    ``event_valid``), on its first 190 rows only when ``is_car`` (MVSEC's
+    outdoor sequences, whose bottom rows show the car's hood)."""
 
     def __init__(
         self,
@@ -66,11 +70,13 @@ class Tester:
         save_path: Optional[str] = None,
         save_csv: bool = False,
         preprocess=None,
+        is_car: bool = False,
     ):
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.save_path = save_path
         self.save_csv = save_csv
+        self.is_car = is_car
         self._preprocess = preprocess
         self.staging = Staging(self.device)
 
@@ -117,6 +123,7 @@ class Tester:
         indices = list(range(0, len(dataset), stride))
         if max_samples is not None:
             indices = indices[:max_samples]
+        evaluation_type = getattr(dataset, "evaluation_type", "dense")
 
         def consume(samples, fut):
             nonlocal AEE_sum, pct1_sum, pct3_sum, iters
@@ -127,6 +134,8 @@ class Tester:
                     np.asarray(sample["flow"]),
                     flows[j],
                     event_img=None if ev_img is None else np.squeeze(ev_img),
+                    is_car=self.is_car,
+                    evaluation_type=evaluation_type,
                 )
                 AEE_sum += aee
                 pct1_sum += p1

@@ -1,10 +1,23 @@
 """File readers and writers for event and flow data (counterpart of
-``eemflow_tpu/events/io.py:12-78``; reference ``loader/loader_utils.py:26-65``).
-Host-side numpy."""
+``eemflow_tpu/events/io.py:12-82``; reference ``loader/loader_utils.py:26-65``).
+Host-side numpy.
+
+MVSEC's per-frame event tables are HDF5 files with a group ``myDataset`` of
+float64 datasets ``ts``, ``x``, ``y``, ``p``, as the offline encoder writes
+them; ``read_events_h5``/``write_events_h5`` read and write that layout
+with the port's own numpy code (``events.hdf5``), since the card's machine
+has no ``h5py``.  The reference's pandas/pytables tables (``pandas.
+read_hdf``) are out of scope: the JAX package reads them only where pandas
+and pytables are both installed, and neither machine has pytables.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+from eemflow_tpu_torch.events.hdf5 import read_datasets, write_datasets
+
+EVENT_COLUMNS = ("ts", "x", "y", "p")
 
 
 def read_compressed_events(event_path: str) -> np.ndarray:
@@ -38,3 +51,24 @@ def write_flo(flow: np.ndarray, flow_path: str) -> None:
         np.asarray([202021.25], np.float32).tofile(f)
         np.asarray([w, h], np.int32).tofile(f)
         flow.astype(np.float32).tofile(f)
+
+
+def read_events_h5(event_path: str) -> np.ndarray:
+    """A per-frame HDF5 event table → [N, 4] float64 [ts, x, y, p]: the
+    datasets under ``myDataset``, or at the root of a file without it."""
+    d = read_datasets(event_path)
+    missing = [k for k in EVENT_COLUMNS if k not in d]
+    if missing:
+        raise ValueError(f"{event_path}: no dataset {missing} in the event table")
+    return np.stack([d[k] for k in EVENT_COLUMNS], axis=1)
+
+
+def write_events_h5(events: np.ndarray, event_path: str) -> None:
+    """Write [N, 4] [ts, x, y, p] as float64 datasets under ``myDataset``."""
+    events = np.asarray(events)
+    write_datasets(event_path, {k: events[:, i] for i, k in enumerate(EVENT_COLUMNS)})
+
+
+def read_flow_npy(path: str) -> np.ndarray:
+    """GT flow .npy as produced by the MVSEC encoder ([2, H, W] or [H, W, 2])."""
+    return np.load(path)

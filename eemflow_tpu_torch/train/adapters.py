@@ -7,8 +7,8 @@ the port trains.
 ev_new)``, the γ-weighted sequence loss; the port trains EEMFlow,
 EEMFlow+, ERAFT and RAFT through it.  The JAX package's other families
 (single volume, raw segments, event + image, the UNet, dense-context and
-MIMO-UNet reconstruction losses, GMFlowNet's matching loss) come with the
-MVSEC training slice; asking for one raises.
+MIMO-UNet reconstruction losses, GMFlowNet's matching loss) wait for their
+models (``ROADMAP.md`` section 1 item 7); asking for one raises.
 """
 
 from __future__ import annotations
@@ -61,5 +61,5 @@ def get_family(name_or_family) -> Family:
         return FAMILIES[MODEL_FAMILY[name]]
     raise KeyError(
         f"model or family '{name_or_family}' is not ported yet (the port trains {sorted(MODEL_FAMILY)} as "
-        f"'two_volume'): the JAX package's other families come with the MVSEC training slice"
+        f"'two_volume'): the JAX package's other families wait for their models (ROADMAP.md section 1 item 7)"
     )

@@ -2,8 +2,8 @@
 reference ``train_mvsec.py`` ``train_iters``).
 
 One ``train_step`` carries a whole iteration on the device: the optional
-raw-event input step (K1 ``voxelize`` per frame, flips; under
-``torch.no_grad()``), the forward with ``train=True`` (K2 one launch for
+raw-event input step (K1 ``voxelize`` per frame, flips, and on MVSEC
+the crop at the batch's ``crop_y``/``crop_x``; under ``torch.no_grad()``), the forward with ``train=True`` (K2 one launch for
 the three correlations, its backward the plain version's autograd), the
 family's loss, backward, the global-norm clip, AdamW and the OneCycle
 step.  The step's metrics stay on the device; the host reads them only at

@@ -155,8 +155,16 @@ def test_augmentor_draws_match_jax():
             np.testing.assert_array_equal(a, b)
         for a, b in zip(ours.draw_flips(flow), theirs.draw_flips(flow)):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="resize"):
-        FlowAugmentor(**AUG)(imgs[0], imgs[1], flow)
+    # the resize branch (MVSEC's training path, ported since) draws and
+    # computes as JAX's: scale and stretch, cv2's linear resize, flips, crop
+    rng = np.random.default_rng(0)
+    big = [rng.standard_normal((520, 968, 5)).astype(np.float32) for _ in range(2)]
+    big_flow = rng.standard_normal((520, 968, 2)).astype(np.float32)
+    ours = FlowAugmentor(**AUG, rng=np.random.default_rng(9))
+    theirs = JaxFlowAugmentor(**AUG, rng=np.random.default_rng(9))
+    for a, b in zip(ours(*big, big_flow), theirs(*big, big_flow)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
 
 
 def _samples(rng, lengths):
