@@ -4,6 +4,8 @@ NVIDIA GPU: the quickest proof that the port builds, is right and runs
 its main paths on the card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k3-bf16-seeds 20   # only K3's bf16 check on
+                                               # EEMFlow+'s chains, 20 draws
 
 Phases, each announced on a flushed line so a run that is cut off shows
 where it stopped:
@@ -31,8 +33,11 @@ where it stopped:
      for B=1 and 2, in float32 and in bf16, on a ragged NHWC view, and on a small ragged concat chain; K3 on
      EEMFlow+'s own chains at their 720×1280 level shapes, float32 and
      bf16: the SGU's concat chain (levels 5..2), the decoders' chains with
-     their convs 2-4 grouped and shuffled (levels 6..2), each in the two
-     launches its plan gives, and the fast pyramid's three chains; K4
+     their convs 2-4 grouped and shuffled (levels 6..2), each in the
+     launches its plan gives (in bf16 the kernel and the plain version each
+     against the chain with exact sums of the same bf16 operands, within
+     the limit ``bf16_chain_bound`` derives from bf16 and float32
+     rounding), and the fast pyramid's three chains; K4
      coarse head at the three 12×20
      levels for B=1 and 2, groups 5 and 1, at both cluster sizes, at an
      8×15 grid, a grid that takes the device-memory scratch and MVSEC's
@@ -99,6 +104,22 @@ where it stopped:
      step, the flips and the crop on the card), in bf16 and float32, with
      their launch counts, and 20 steps of each on one batch lowering its
      loss;
+  3d. zoo: GMA, SKFlow and KPAFlow (drawing from a generator of their
+     own): the golden checkpoints through the eval CLIs on the JAX
+     package's golden fixtures (GMA on the seed-99 HREM split at 720×1280
+     through ``test_hrem``, SKFlow and KPAFlow on the seed-55 MVSEC
+     sequence, dt1 dense, through ``test_mvsec``; one sample, 12
+     iterations), each on the host path and with ``--device_voxelize``
+     (K1), with their launch counts, within 0.01 of the golden AEE and the
+     device path within 1e-4 of the host path; each model's 256×256 B=1
+     forward (3 iterations, seeded weights, every gate drawn nonzero) on the
+     card against the CPU within 1e-4·max(1, largest |flow|), and how far
+     zeroing the gates moves it; ``train_mvsec`` at B=6 with each model's
+     config in bf16 (host grids) and float32 (``--device_voxelize``: K1 two
+     calls a step), with their launch counts; one float32 train step at
+     128×128 B=2 (3 iterations, gates nonzero) on the card against the CPU
+     in units of the model's largest gradient; 20 steps on one batch
+     lowering its loss in bf16 and float32; the phase's seconds;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
@@ -139,11 +160,17 @@ where it stopped:
      256×256 B=1 forwards of EEMFlow (standard, ``--fast``) and ERAFT
      (module path, K5) back to back with their device busy time, one whole
      eval sample (host and device voxelize), and the two MVSEC train steps
-     (ms, busy share, peak memory).
+     (ms, busy share, peak memory); then the zoo: GMA's 720×1280 B=1
+     forward (golden weights) and the three 256×256 B=1 forwards back to
+     back and their device busy time, SKFlow's and KPAFlow's first kernels
+     by device time, SKFlow's 15×15 depthwise convs by their share of the
+     forward, and the three B=6 MVSEC train steps with their configs in bf16
+     and float32 (ms, busy share, peak memory).
 
 Then one JSON line of the train step's times (``{"train_step": ...}``:
 EEMFlow's under ``bf16`` and ``float32``, EEMFlow+'s and ERAFT's under
-their names with their ``batch``), one
+their names with their ``batch``, the zoo's forwards and MVSEC train steps
+under ``zoo``), one
 of every ported kernel (``ms`` is device time; for K1 ``voxel_scatter`` at
 2·10^5 events a frame, with ``voxelize_*`` and ``*_30k`` beside it; for K2
 the three levels of a B=1 forward, float32, ``bf16_*`` on bf16 operands
@@ -154,7 +181,8 @@ of its 9 chains in one fused forward, after an L2 flush; for
 K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
 the time per wrapper call back to back; ``standard_ms`` the device time of
 the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
-for K1 and K2, ``launches_per_train_step_eemflow_plus`` and ``_eraft``
+for K1 and K2 (K1's ``launches`` include phase 3d's device-voxelize
+runs), ``launches_per_train_step_eemflow_plus`` and ``_eraft``
 beside it; ``mvsec_*`` fields: the kernel at MVSEC's shapes and its
 launches on the MVSEC paths of phase 3c), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -283,8 +311,12 @@ def say(line: str) -> None:
     print(line, flush=True)
 
 
+# the run's start on the host clock: each phase line says when it began
+STARTED = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    say(f"=== phase {name}")
+    say(f"=== phase {name} (at {time.perf_counter() - STARTED:.1f} s)")
 
 
 def require(cond: bool, what: str) -> None:
@@ -589,13 +621,15 @@ def phase_parity(device: torch.device) -> dict:
             "update_block": k5_err}
 
 
-def phase_parity_k3_plus(device: torch.device, rng):
+def phase_parity_k3_plus(device: torch.device, rng, dtypes=(torch.float32, torch.bfloat16), bf16_ratios=None):
     """K3 on EEMFlow+'s own chains at their 720x1280 level shapes, B=1,
     He-scaled random weights, float32 and bf16: the SGU's concat chain and
     the decoders' chains (convs 2-4 grouped and shuffled), each in the
     launches its plan gives, and the fast pyramid's chains; each against
-    the plain version.  Returns the largest float32 differences (EEMFlow+'s
-    9 chains, the pyramid's)."""
+    the plain version, and in bf16 EEMFlow+'s chains against exact sums
+    (``bf16_chain_bound``; each chain's largest share of the limit is
+    appended to ``bf16_ratios[label]`` where that is given).  Returns the
+    largest float32 differences (EEMFlow+'s 9 chains, the pyramid's)."""
     from eemflow_tpu_torch.kernels import fused_convs as k3
     from eemflow_tpu_torch.kernels import launch_counts
     from eemflow_tpu_torch.ops.fused_convs import chain_channels
@@ -612,7 +646,7 @@ def phase_parity_k3_plus(device: torch.device, rng):
             c = f + (c if cat else 0)
         chain = chain_channels(cin, ws, concat, groups)
         kind = "pyramid" if label.startswith("pyramid") else "plus"
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             packed = k3.pack_chain(ws, bs, dtype == torch.bfloat16, device, pool, concat, groups, groups, relus)
             before = launch_counts["fused_convs_pool"]
             got = k3.fused_convs(x, ws, bs, pool, dtype, True, relus, concat, packed, groups, groups)
@@ -625,12 +659,26 @@ def phase_parity_k3_plus(device: torch.device, rng):
             plan = ", ".join(f"convs {L.lo + 1}-{L.hi} tile {L.plan['tile'][0]}x{L.plan['tile'][1]} "
                              f"{L.plan['smem_bytes']} B" for L in packed.launches)
             if dtype == torch.bfloat16 and kind == "plus":
-                # how far the kernel and the plain version each lie from the
-                # chain with exact sums (float64) of the same bf16 operands
-                ex = exact_bf16_chain(x, ws, bs, relus, concat, groups)
+                # the kernel and the plain version each against the chain
+                # with exact sums of the same bf16 operands, within the
+                # limit that float32 sums and bf16 re-rounding give
+                # (bf16_chain_bound); against each other they pass or fail
+                # by the draw, as a rounding flip between convs moves one
+                # side by a bf16 unit
+                ex, bound = bf16_chain_bound(x, ws, bs, relus, concat, groups)
                 scale = max(1.0, float(ex.abs().max()))
-                say(f"K3 EEMFlow+ {label} bf16 against exact sums: kernel {float((got[0] - ex).abs().max()) / scale:.3e}, "
-                    f"plain version {float((ref[0] - ex).abs().max()) / scale:.3e} (of max(1, |exact|))")
+                ratios = []
+                for side, out in (("kernel", got[0]), ("plain version", ref[0])):
+                    err = (out.double() - ex).abs()
+                    ratios.append(float((err / bound).max()))
+                    say(f"K3 EEMFlow+ {label} bf16 {side} against exact sums: max|Δ| {float(err.max()):.3e} "
+                        f"({float(err.max()) / scale:.3e} of max(1, |exact|)); at most {ratios[-1]:.3f} of the "
+                        f"limit, whose largest is {float(bound.max()):.3e} ({float(bound.max()) / scale:.3e})")
+                if bf16_ratios is not None:
+                    bf16_ratios.setdefault(label, []).append(max(ratios))
+                require(bool(torch.isfinite(got[0]).all()) and max(ratios) <= 1.0,
+                        f"K3 or its plain version lies outside the bf16 limit on EEMFlow+'s {label}")
+                continue
             for what, g, r in zip(("full", "pooled"), got, ref):
                 if g is None:
                     continue
@@ -645,24 +693,50 @@ def phase_parity_k3_plus(device: torch.device, rng):
     return worst["plus"], worst["pyramid"]
 
 
-def exact_bf16_chain(x, ws, bs, relus, concat, groups):
-    """A conv chain with bf16-rounded operands whose sums are exact
-    (float64) and rounded once to float32 at each conv: the result that
-    every float32 summation order approximates."""
+# bf16's unit roundoff (8 significand bits): round to nearest moves a
+# value by at most u·|v|
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
+
+
+def bf16_chain_bound(x, ws, bs, relus, concat, groups):
+    """The conv chain with bf16-rounded operands and exact sums (float64),
+    each conv's sum rounded once to float32: the value that every float32
+    summation order approximates; and an elementwise limit for a float32
+    evaluation of the same chain, channel by channel from the conv that
+    produced the value: its float32 sum of n = C_in/g·9 + 1 terms lies
+    within n·u·(|W|·|x| + |b|) of the exact one, plus u·|y| for the exact
+    side's own rounding (u = 2^-24); and a difference that an earlier conv
+    left can make an operand of this conv round to the neighbouring bf16
+    value, one bf16 spacing away, at most 2·u₁₆·|x| (u₁₆ = 2^-8): taken
+    whole, as such a flip of every operand, 2·u₁₆·|W|·|x|.  The input is
+    rounded alike on both sides, so the first conv has no such term.
+    LeakyReLU is 1-Lipschitz; the shuffle and the concat move the limits
+    with their values.  This is a first-order limit, not a proven bound: it
+    does not carry an earlier conv's difference through |W|.  A bound that
+    does (|W|·e grows by Σ|w| ≈ 1.1·sqrt(C_in/g·9), some 20x a conv) exceeds
+    the values themselves after three convs and would test nothing; how far
+    below it the chains lie over many draws is measured by
+    ``--k3-bf16-seeds``."""
     import torch.nn.functional as F
 
     from eemflow_tpu_torch.models.layers import channel_shuffle
 
-    y = x
-    for w, b, relu, cat, g in zip(ws, bs, relus, concat, groups):
-        out = F.conv2d(y.to(torch.bfloat16).double(), w.to(torch.bfloat16).double(), b.double(), padding=1,
-                       groups=g).float()
+    y, e = x.double(), torch.zeros_like(x, dtype=torch.float64)
+    for i, (w, b, relu, cat, g) in enumerate(zip(ws, bs, relus, concat, groups)):
+        wr = w.to(torch.bfloat16).double()
+        yr = y.to(torch.bfloat16).double()
+        out = F.conv2d(yr, wr, b.double(), padding=1, groups=g).float().double()
+        n = w.shape[1] * w.shape[2] * w.shape[3] + 1
+        sums = F.conv2d(yr.abs(), wr.abs(), padding=1, groups=g)
+        rerounding = 2 * BF16_UNIT_ROUNDOFF * sums if i > 0 else 0.0
+        e_out = rerounding + n * F32_UNIT_ROUNDOFF * (sums + b.double().abs()[None, :, None, None]) \
+            + F32_UNIT_ROUNDOFF * out.abs()
         if relu:
             out = F.leaky_relu(out, 0.1)
         if g > 1:
-            out = channel_shuffle(out, g)
-        y = torch.cat([out, y], dim=1) if cat else out
-    return y
+            out, e_out = channel_shuffle(out, g), channel_shuffle(e_out, g)
+        y, e = (torch.cat([out, y], dim=1), torch.cat([e_out, e], dim=1)) if cat else (out, e_out)
+    return y, e
 
 
 def phase_parity_k1(device: torch.device, rng, mvsec_rng):
@@ -1562,10 +1636,6 @@ def train_step_card_vs_cpu(device: torch.device, name: str = "eemflow") -> None:
     versions); the loss and every parameter's gradient compared.  EEMFlow
     against the 16x16 meshflow label, the two-volume models against the
     full-resolution flow."""
-    from eemflow_tpu_torch.data.device_input import make_device_preprocess
-    from eemflow_tpu_torch.kernels import launch_counts
-    from eemflow_tpu_torch.train.trainer import make_train_step
-
     h, w, B, N = 128, 256, 2, 8192
     spec = TWO_VOLUME.get(name, {"bins": BINS, "k2": 1, "per_leaf": True})
     label = (16, 16) if name == "eemflow" else (h, w)
@@ -1577,23 +1647,8 @@ def train_step_card_vs_cpu(device: torch.device, name: str = "eemflow") -> None:
         "flow": (rng.standard_normal((B, *label, 2)) * 2).astype(np.float32),
         "valid": np.ones((B, *label), np.float32),
     }
-    runs = {}
-    for key, dev in (("cpu", torch.device("cpu")), ("card", device)):
-        state = train_state(dev, seed=5, lr=1e-3, name=name, num_steps=100)
-        grads = {}
-        opt_step = state.opt.step
-
-        def step_recording_grads(state=state, grads=grads, opt_step=opt_step):
-            grads.update({n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()})
-            return opt_step()
-
-        state.opt.step = step_recording_grads
-        before = dict(launch_counts)
-        _, metrics = make_train_step(preprocess=make_device_preprocess(spec["bins"], h, w))(
-            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
-        runs[key] = (float(metrics["loss"]), grads,
-                     (launch_counts["voxel_scatter"] - before["voxel_scatter"],
-                      launch_counts["local_corr"] - before["local_corr"]))
+    runs = step_on_cpu_and_card(device, lambda dev: train_state(dev, seed=5, lr=1e-3, name=name, num_steps=100),
+                                batch, spec["bins"], h, w)
     (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs["card"]
     top = max(float(g.abs().max()) for g in g_cpu.values())
     unit = (lambda g: float(g.abs().max())) if spec["per_leaf"] else (lambda g: top)
@@ -1611,6 +1666,35 @@ def train_step_card_vs_cpu(device: torch.device, name: str = "eemflow") -> None:
     require(np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
             and worst <= TRAIN_GRAD_TOL and whole <= TRAIN_GRAD_TOL,
             f"the {name} train step on the card disagrees with the CPU")
+
+
+def step_on_cpu_and_card(device: torch.device, make_state, batch: dict, bins: int, h: int, w: int) -> dict:
+    """One float32 train step (device voxelize from the raw-event ``batch``,
+    forward, loss, backward, clip, AdamW) of ``make_state(device)`` on the
+    CPU and on the card: per side (loss, each parameter's gradient before
+    the clip, on the CPU, (K1 calls, K2 launches))."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.train.trainer import make_train_step
+
+    runs = {}
+    for key, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        state = make_state(dev)
+        grads = {}
+        opt_step = state.opt.step
+
+        def step_recording_grads(state=state, grads=grads, opt_step=opt_step):
+            grads.update({n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()})
+            return opt_step()
+
+        state.opt.step = step_recording_grads
+        before = dict(launch_counts)
+        _, metrics = make_train_step(preprocess=make_device_preprocess(bins, h, w))(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[key] = (float(metrics["loss"]), grads,
+                     (launch_counts["voxel_scatter"] - before["voxel_scatter"],
+                      launch_counts["local_corr"] - before["local_corr"]))
+    return runs
 
 
 def train_batch(root: str, device: torch.device, seed: int = 0, batch: int = TRAIN_BATCH,
@@ -2285,6 +2369,21 @@ def device_kernels(fn, complete=lambda kernels: len(kernels) > 0) -> list:
     return kernels
 
 
+def top_kernels(fn, n: int = 6) -> tuple:
+    """(the summed device time of one call of ``fn``, a line of its first
+    ``n`` kernels by summed device time with their launches), from
+    torch.profiler.  cuDNN can run kernels of one call side by side, so the
+    sum can exceed the busy union of ``profiled_step``."""
+    by_name = {}
+    for k, ms in device_kernels(fn):
+        t, c = by_name.get(k, (0.0, 0))
+        by_name[k] = (t + ms, c + 1)
+    total = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return total, f"(of {total:.3f} ms summed) " + "; ".join(
+        f"{k[:90]} {t:.3f} ms ({c} launches)" for k, (t, c) in top)
+
+
 def kernel_counts(fn, name: str):
     """(launches of kernels whose name holds ``name``, other kernels) in
     one call of ``fn`` (torch.profiler)."""
@@ -2802,28 +2901,37 @@ MVSEC_TRAIN = (
 MVSEC_TRAIN_STEPS = 4  # two epochs of two steps
 
 
-def make_mvsec_fixture(base: str, seed: int = 55, n_events: int = 30000) -> str:
+def make_mvsec_fixture(base: str, seed: int = 55, n_events: int = 30000, sequences=None, t0: float = MVSEC_T0,
+                       images: bool = False, name: str = "mvsec") -> str:
     """Synthetic MVSEC sequences at 260x346 written by the port's own HDF5
-    writer: ``event/{i+1:06d}.h5`` tables (timestamps MVSEC_T0 + i·0.03 s)
-    and ``flowgt_dt1``/``flowgt_dt4`` ``{i}.npy``, for the two eval
-    sequences (an indoor one, an outdoor one for ``is_car``) and the train
-    sequence; enough frames for dt4's trailing windows."""
+    writer: ``event/{i+1:06d}.h5`` tables (timestamps t0 + i·0.03 s) and
+    ``flowgt_dt1``/``flowgt_dt4`` ``{i}.npy`` for frames first..last-1 of
+    each ``(sequence, first, last)``; by default the two eval sequences (an
+    indoor one, an outdoor one for ``is_car``) and the train sequence, with
+    enough frames for dt4's trailing windows.  ``images`` draws a frame
+    image after each event table (drawn, not written), as the JAX package's
+    golden fixture does for the image-using families."""
     from eemflow_tpu_torch.events.io import write_events_h5
 
+    if sequences is None:
+        first = MVSEC_EVAL_FRAMES[0]
+        sequences = (("indoor_flying1", first, 13), ("outdoor_day1", first, 13), (MVSEC_TRAIN_SEQUENCE, first, 11))
     rng = np.random.default_rng(seed)
-    root = os.path.join(base, "mvsec")
-    for seq, last in (("indoor_flying1", 13), ("outdoor_day1", 13), (MVSEC_TRAIN_SEQUENCE, 11)):
+    root = os.path.join(base, name)
+    for seq, first, last in sequences:
         d = os.path.join(root, seq)
         for sub in ("event", "flowgt_dt1", "flowgt_dt4"):
             os.makedirs(os.path.join(d, sub), exist_ok=True)
-        for i in range(MVSEC_EVAL_FRAMES[0], last):
+        for i in range(first, last):
             ev = np.stack([
-                MVSEC_T0 + np.sort(rng.uniform(i * 0.03, (i + 1) * 0.03, n_events)),
+                t0 + np.sort(rng.uniform(i * 0.03, (i + 1) * 0.03, n_events)),
                 rng.integers(0, MVSEC_W, n_events).astype(np.float64),
                 rng.integers(0, MVSEC_H, n_events).astype(np.float64),
                 rng.integers(0, 2, n_events).astype(np.float64),
             ], axis=1)
             write_events_h5(ev, os.path.join(d, "event", f"{i + 1:06d}.h5"))
+            if images:
+                rng.integers(0, 255, (MVSEC_H, MVSEC_W), np.uint8)
             for sub in ("flowgt_dt1", "flowgt_dt4"):
                 np.save(os.path.join(d, sub, f"{i}.npy"),
                         (rng.standard_normal((2, MVSEC_H, MVSEC_W)) * 2).astype(np.float32))
@@ -3212,6 +3320,295 @@ def times_mvsec(device, tmp: str, launches: dict) -> dict:
     return rows
 
 
+# GMA, SKFlow and KPAFlow (phase 3d): their golden checkpoints, each on the
+# JAX package's golden fixture and protocol (GMA on phase 3's seed-99 HREM
+# split at 720x1280, SKFlow and KPAFlow on the seed-55 MVSEC sequence of
+# tests/test_golden_acceptance.py, dt1 dense; one sample, 12 iterations);
+# the device path against the host path (the same function, the grid summed
+# in another order and carried through 12 iterations); the card against the
+# CPU, relative to max(1, largest |flow|), with every gate drawn nonzero
+ZOO = ("gma", "skflow", "kpaflow")
+ZOO_GOLDENS = {
+    "gma": ("hrem", "gma_hrem_golden.pth.tar", "hrem_golden_gma.json"),
+    "skflow": ("mvsec", "skflow_mvsec_golden.pth.tar", "mvsec_golden_skflow.json"),
+    "kpaflow": ("mvsec", "kpaflow_mvsec_golden.pth.tar", "mvsec_golden_kpaflow.json"),
+}
+ZOO_PATH_TOL = 1e-4
+ZOO_FORWARD_TOL = 1e-4
+# the update blocks' weights at this share of their He variance (the CPU
+# tests' draws, tests/test_torch_gma.py and test_torch_train_zoo.py): at the
+# full variance SKFlow's residual PCBlocks grow the flow ~10^4x an iteration
+ZOO_SCALE = {"gma": 0.5, "skflow": 0.3, "kpaflow": 1.0}
+ZOO_ITERS = 3  # the card-vs-CPU forwards and train step
+ZOO_LR = 1e-4  # the 20-step loss check
+ZOO_TRAIN_PATHS = (("bf16 (the config), host grids", True, [], 0),
+                   ("float32, --device_voxelize", False, ["--device_voxelize"], 2))
+
+
+def zoo_seeded(model, rng, scale: float):
+    """Draw the model's weights from ``rng`` as the CPU tests draw the JAX
+    model's: conv weights normal with variance 2/fan_out in the encoders,
+    1/fan_in in a GRU and 2/fan_in elsewhere (times ``scale`` outside the
+    encoders), conv biases N(0, 0.01²), norms at scale 1 and bias 0, every
+    gate (``gamma``) uniform in [0.5, 1.5] and ``w_prelu`` its init value
+    times uniform [0.5, 1.5].  Returns the model."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.Conv2d):
+                o, i, kh, kw = m.weight.shape
+                if name.startswith(("fnet.", "cnet.")):
+                    var = 2.0 / (o * kh * kw)
+                else:
+                    var = (1.0 if ".gru." in f".{name}." else 2.0) / (i * kh * kw) * scale
+                m.weight.copy_(torch.from_numpy(rng.standard_normal(m.weight.shape) * np.sqrt(var)))
+                if m.bias is not None:
+                    m.bias.copy_(torch.from_numpy(rng.standard_normal(m.bias.shape) * 0.01))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.fill_(0.0)
+        for name, p in model.named_parameters():
+            if name.endswith("gamma"):
+                p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)))
+            elif name.endswith("w_prelu"):
+                p.mul_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)).float())
+    return model
+
+
+def phase_zoo(device: torch.device, tmp: str) -> dict:
+    """GMA, SKFlow and KPAFlow through the port's CLIs: the golden
+    checkpoints (GMA's through ``test_hrem`` at 720x1280, SKFlow's and
+    KPAFlow's through ``test_mvsec`` on MVSEC dt1 dense), each on the host
+    path and with ``--device_voxelize`` (K1), each run's launch counts set to
+    0 just before it and read just after; the card against the CPU at
+    256x256 B=1 (3 iterations, seeded weights, every gate nonzero);
+    ``train_mvsec`` at B=6 with each model's own config in bf16 (host grids)
+    and float32 (``--device_voxelize``); one float32 train step on the card
+    against the CPU at 128x128 B=2; 20 steps on one batch lowering its loss
+    in bf16 and float32.  Draws from a generator of its own.  Returns the
+    K1 calls of its device paths."""
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.tools.test_hrem import main as test_hrem
+    from eemflow_tpu_torch.tools.test_mvsec import main as test_mvsec
+    from eemflow_tpu_torch.tools.train_mvsec import main as train_mvsec
+
+    phase("3d zoo: GMA, SKFlow and KPAFlow: goldens (HREM 720x1280, MVSEC dt1 dense), the card against the CPU, "
+          "train_mvsec at B=6 with their configs")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(15)
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    hrem_root = os.path.join(tmp, "hrem")  # phase 3's seed-99 split
+    # the MVSEC sequence of the JAX package's golden checks
+    # (tests/test_golden_acceptance.make_mvsec_fixture), draw for draw
+    golden_mvsec = make_mvsec_fixture(tmp, n_events=20000, sequences=(("indoor_flying1", 2, 18),), t0=0.0,
+                                      images=True, name="mvsec_golden")
+    k1_calls = 0
+    others = ("local_corr", "fused_convs_pool", "coarse_head", "update_block")
+    for name in ZOO:
+        data, ckpt, golden_json = ZOO_GOLDENS[name]
+        with open(os.path.join(fixtures, golden_json)) as f:
+            golden = json.load(f)
+        aee = {}
+        for label, extra, k1 in (("host voxelize", [], 0), ("device voxelize", ["--device_voxelize"], 2)):
+            common = ["-model", name, "-int", "dt1", "--checkpoint", os.path.join(fixtures, ckpt), "--max_samples",
+                      str(golden["max_samples"]), "--device", str(device), *extra]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            if data == "hrem":
+                res = test_hrem(common + ["--data_root", hrem_root, "--save_dir", os.path.join(tmp, "out_zoo")])
+                aee[label] = res["mean"]["AEE"]
+            else:
+                res = test_mvsec(common + ["--sequence", "indoor_flying1", "--eval_type", "dense", "--data_root",
+                                           golden_mvsec, "--frames", "3", "9", "--stride", "1", "--save_dir",
+                                           os.path.join(tmp, "out_zoo")])
+                aee[label] = res["AEE"]
+            counts = dict(launch_counts)
+            say(f"zoo {name} golden ({data}), {label}: AEE {aee[label]:.7f} in {time.perf_counter() - t0:.1f} s; "
+                f"launches {counts}")
+            require(counts["voxel_scatter"] == k1 and all(counts[k] == 0 for k in others),
+                    f"zoo {name} {label}: launches {counts}, not K1 {k1} and no other kernel")
+            k1_calls += counts["voxel_scatter"]
+        host, dev = aee["host voxelize"], aee["device voxelize"]
+        say(f"zoo {name}: golden AEE {golden['aee']:.7f}, host path |Δ| {abs(host - golden['aee']):.3e} (tolerance "
+            f"{GOLDEN_TOL:g}); device voxelize vs host path |Δ| {abs(dev - host):.3e} (tolerance {ZOO_PATH_TOL:g})")
+        require(abs(host - golden["aee"]) < GOLDEN_TOL and abs(dev - host) <= ZOO_PATH_TOL,
+                f"zoo {name}: the golden AEE drifted or the device path differs from the host path")
+
+    # the card against the CPU, every gate nonzero
+    for name in ZOO:
+        model = zoo_seeded(get_eval_model(name, iters=ZOO_ITERS), rng, ZOO_SCALE[name])
+        ev1, ev2 = (torch.from_numpy(rng.standard_normal((1, MVSEC_CROP, MVSEC_CROP, BINS)).astype(np.float32))
+                    for _ in range(2))
+        with torch.inference_mode():
+            ref = model(ev1, ev2)[1][-1]
+            model.to(device)
+            got = model(ev1.to(device), ev2.to(device))[1][-1].cpu()
+            gates = [p for n, p in model.named_parameters() if n.endswith("gamma")]
+            for p in gates:
+                p.zero_()
+            ungated = model(ev1.to(device), ev2.to(device))[1][-1].cpu()
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        say(f"zoo {name} forward 256x256 B=1, {ZOO_ITERS} iterations, gates nonzero, card vs CPU: max|Δ| {err:.3e} "
+            f"(tolerance {ZOO_FORWARD_TOL:g}·{scale:.3f}); largest flow {float(ref.abs().max()):.3f}, moved "
+            f"{float((ungated - got).abs().max()):.3f} by zeroing the {len(gates)} gates")
+        require(bool(torch.isfinite(got).all()) and err <= ZOO_FORWARD_TOL * scale,
+                f"zoo {name}: the forward on the card disagrees with the CPU")
+        del model
+
+    # train_mvsec at B=6 with each model's own config, its launch counts set
+    # to 0 just before each run
+    root = os.path.join(tmp, "mvsec")  # phase 3c's train sequence
+    with mvsec_train_frames():
+        for name in ZOO:
+            config = f"mvsec_{name}.json"
+            for label, mp, extra, k1_step in ZOO_TRAIN_PATHS:
+                save = os.path.join(tmp, f"zoo_train_{name}_{int(mp)}")
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                state = train_mvsec([
+                    "-model", name, "--config", train_config(tmp, mp, config), "--data_root", root, "--sequence",
+                    MVSEC_TRAIN_SEQUENCE, "-bs", str(TRAIN_BATCH), "--train_iters", str(MVSEC_TRAIN_STEPS),
+                    "--val_iters", str(MVSEC_TRAIN_STEPS // 2), "--save_dir", save, "--device", str(device), *extra,
+                ])
+                counts = dict(launch_counts)
+                run = os.path.join(save, os.listdir(save)[0])
+                recs = [r for r in read_jsonl(os.path.join(run, "metrics.jsonl")) if r["kind"] == "epoch"]
+                say(f"zoo train_mvsec {name} {label}, B={TRAIN_BATCH}: {MVSEC_TRAIN_STEPS} steps in "
+                    f"{time.perf_counter() - t0:.1f} s; epochs {[(r['epoch'], r['n_steps'], r['mean_loss']) for r in recs]}"
+                    f"; launches {counts}")
+                require(state.step == MVSEC_TRAIN_STEPS and len(recs) == 2
+                        and all(np.isfinite(r["mean_loss"]) for r in recs)
+                        and all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+                        f"zoo {name} {label}: the run did not take its steps with finite losses")
+                require(counts["voxel_scatter"] == k1_step * MVSEC_TRAIN_STEPS and all(counts[k] == 0 for k in others),
+                        f"zoo {name} {label}: launches {counts}, not K1 {k1_step} a step and no other kernel")
+                k1_calls += counts["voxel_scatter"]
+                del state
+            zoo_step_card_vs_cpu(device, name, rng)
+            mvsec_steps_lower_the_loss(device, root, name, config, [], ZOO_LR)
+            torch.cuda.empty_cache()
+    say(f"phase 3d took {time.perf_counter() - t_phase:.1f} s; K1 calls on its device paths {k1_calls}")
+    return {"voxel_scatter": k1_calls}
+
+
+def zoo_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
+    """One float32 train step of ``name`` (3 iterations; device voxelize with
+    flips, forward, loss, backward, clip, AdamW) from the same seeded
+    parameters, every gate nonzero, and batch at 128x128, B=2: on the card
+    and on the CPU; the loss and every gradient, in units of the model's
+    largest |g| (phase 3b's ERAFT rule), and the whole gradient."""
+    from eemflow_tpu_torch.models.registry import get_model
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state
+
+    h, w, B, N = 128, 128, 2, 4096
+    params = zoo_seeded(get_model(name, iters=ZOO_ITERS), rng, ZOO_SCALE[name]).state_dict()
+    ev, nv = k1_batch(rng, (N, N - 100, N - 7, N), N=N, h=h, w=w)
+    batch = {
+        "events_old": ev[:B], "events_new": ev[B:], "n_old": nv[:B], "n_new": nv[B:],
+        "flip_h": np.array([True, False]), "flip_v": np.array([False, True]),
+        "flow": (rng.standard_normal((B, h, w, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, h, w), np.float32),
+    }
+    runs = step_on_cpu_and_card(
+        device, lambda dev: create_train_state(get_model(name, iters=ZOO_ITERS), 0, make_optimizer(1e-4, num_steps=100),
+                                               params=params, device=dev), batch, BINS, h, w)
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs["card"]
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst = max(float((g_gpu[n] - g).abs().max()) for n, g in g_cpu.items()) / top
+    whole = float(torch.cat([(g_gpu[n] - g).flatten() for n, g in g_cpu.items()]).norm()
+                  / torch.cat([g.flatten() for g in g_cpu.values()]).norm())
+    say(f"zoo {name}: one float32 train step at {h}x{w} B={B}, {ZOO_ITERS} iterations, gates nonzero, card (K1 calls, "
+        f"K2 launches {n_gpu}) vs CPU ({n_cpu}): loss {loss_gpu:.7f} vs {loss_cpu:.7f} (|Δ| relative "
+        f"{abs(loss_gpu - loss_cpu) / loss_cpu:.3e}, tolerance {TRAIN_LOSS_RTOL:g}); grads: the worst parameter's "
+        f"max|Δ| is {worst:.3e} of the model's largest |g| (tolerance {TRAIN_GRAD_TOL:g}); the whole gradient "
+        f"{whole:.3e} relative L2")
+    require(n_gpu == (2, 0) and n_cpu == (0, 0), f"zoo {name}: the card's train step did not run K1 twice")
+    require(np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
+            and worst <= TRAIN_GRAD_TOL and whole <= TRAIN_GRAD_TOL,
+            f"zoo {name}: the train step on the card disagrees with the CPU")
+
+
+def times_zoo(device, tmp: str) -> dict:
+    """Phase 4 for GMA, SKFlow and KPAFlow: GMA's 720x1280 B=1 eval forward
+    (golden weights), and the three 256x256 B=1 forwards, back to back
+    (CUDA events) and the device's busy time in one profiled run;
+    SKFlow's and KPAFlow's first kernels by device time; SKFlow's 15x15
+    depthwise convs of one forward, replayed on their inputs, by their
+    kernels' device time against the forward's busy time; the B=6 MVSEC
+    train steps with each model's config (host grids),
+    in bf16 and float32: ms back to back, busy share, peak memory."""
+    from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    out = {}
+    forwards = [("gma", (H, W))] + [(n, (MVSEC_CROP, MVSEC_CROP)) for n in ZOO]
+    for name, (h, w) in forwards:
+        model = get_eval_model(name)
+        load_model_checkpoint(model, os.path.join(fixtures, ZOO_GOLDENS[name][1]), name, log=say)
+        model.to(device)
+        x1, x2 = (torch.randn(1, h, w, BINS, device=device) for _ in range(2))
+
+        def forward(m=model):
+            with torch.inference_mode():
+                return m(x1, x2)[1][-1]
+
+        require(tuple(forward().shape) == (1, h, w, 2) and bool(torch.isfinite(forward()).all()),
+                f"the {h}x{w} {name} forward is not finite or has the wrong shape")
+        b2b = cuda_ms(forward, reps=5 if h == H else 10)
+        prof = profiled_step(forward, reps=1, tmp=tmp)
+        say(f"zoo forward {name} {h}x{w} B=1, 12 iterations: {b2b:.3f} ms back to back ({1e3 / b2b:.1f} fps); the "
+            f"device busy {prof['busy_ms']:.3f} ms of {prof['profiled_ms']:.3f} ms a profiled call "
+            f"({100 * prof['busy_share']:.1f}%, {prof['device_ops']:.0f} kernels and copies)")
+        out[f"{name}_{h}x{w}"] = {"ms": b2b, **prof}
+        if name in ("skflow", "kpaflow"):
+            summed, line = top_kernels(forward)
+            say(f"zoo {name} 256x256 forward's first kernels by device time: {line}")
+        if name == "skflow":
+            calls = []
+            hooks = [m.register_forward_hook(lambda mod, inp, _o: calls.append((mod, inp[0])))
+                     for m in model.modules() if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (15, 15)]
+            forward()
+            for hk in hooks:
+                hk.remove()
+            def convs15():
+                with torch.inference_mode():
+                    return [mod(x) for mod, x in calls]
+
+            dw, line = top_kernels(convs15, 3)
+            say(f"zoo SKFlow 256x256 forward: its {len(calls)} 15x15 depthwise convs, replayed on their inputs, take "
+                f"{dw:.3f} ms of summed device time, {100 * dw / summed:.1f}% of the forward's {summed:.3f}: {line}")
+            out["skflow_depthwise15_ms"] = dw
+        del model
+        torch.cuda.empty_cache()
+
+    root = os.path.join(tmp, "mvsec")
+    for name in ZOO:
+        data = mvsec_train_batch(root, device, f"mvsec_{name}.json", raw=False)
+        for label, mp in (("bf16", True), ("float32", False)):
+            state = mvsec_train_state(device, name, ZOO_LR)
+            step = mvsec_step(name, mp)
+            run = lambda: step(state, data)
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            b2b = cuda_ms(run, reps=3, warmup=1)
+            prof = profiled_step(run, reps=1, tmp=tmp)
+            say(f"zoo train step {name} 256x256 B={TRAIN_BATCH} host grids (its config), {label}: {b2b:.3f} ms back "
+                f"to back ({TRAIN_BATCH * 1e3 / b2b:.1f} samples/s); under torch.profiler {prof['profiled_ms']:.3f} "
+                f"ms a step, the device busy {prof['busy_ms']:.3f} ms of it ({100 * prof['busy_share']:.1f}%, "
+                f"{prof['device_ops']:.0f} kernels and copies); peak allocated {peak / 2**30:.3f} GiB")
+            out[f"train_{name}_{label}"] = {"ms": b2b, "peak_gib": peak / 2**30, **prof}
+            del state, step, run
+            torch.cuda.empty_cache()
+    return out
+
+
 def run(device: torch.device) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3224,11 +3621,38 @@ def run(device: torch.device) -> dict:
         launches.update(phase_train(device, tmp))
         two_volume = phase_train_two_volume(device, tmp)
         mvsec = phase_mvsec(device, tmp)
+        zoo = phase_zoo(device, tmp)
+        launches["voxel_scatter"] += zoo["voxel_scatter"]
         kernels, train = phase_times(device, tmp, errs, launches, two_volume, mvsec)
+        train["zoo"] = times_zoo(device, tmp)
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     say(json.dumps({"train_step": train}))
     say(json.dumps({"kernels": kernels}))
     return dev_info
+
+
+def sweep_k3_bf16(device: torch.device, seeds: int) -> None:
+    """K3's bf16 check on EEMFlow+'s chains over ``seeds`` draws (generators
+    seeded 1000, 1001, ...): each chain's largest share of
+    ``bf16_chain_bound``'s limit, for the kernel and the plain version
+    alike, over the draws; a draw that breaks the limit is reported and the
+    next one taken."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_device(device)
+    phase_build()
+    phase(f"K3 bf16 on EEMFlow+'s chains against exact sums over {seeds} draws")
+    ratios, failed = {}, []
+    for k in range(seeds):
+        try:
+            phase_parity_k3_plus(device, np.random.default_rng(1000 + k), (torch.bfloat16,), ratios)
+        except SmokeFailure as e:
+            failed.append(f"seed {1000 + k}: {e}")
+    for label, r in ratios.items():
+        r = np.asarray(r)
+        say(f"K3 bf16 {label}: share of the limit over {len(r)} draws: largest {r.max():.3f}, median "
+            f"{np.median(r):.3f}, smallest {r.min():.3f}")
+    say(f"draws past the limit: {len(failed)} of {seeds}" + "".join(f"\n  {f}" for f in failed))
 
 
 def main() -> int:
@@ -3237,6 +3661,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     try:
+        if sys.argv[1:2] == ["--k3-bf16-seeds"]:
+            sweep_k3_bf16(torch.device("cuda"), int(sys.argv[2]))
+            return 0
         dev_info = run(torch.device("cuda"))
     except Exception as e:  # the smoke run's boundary: report, exit non-zero
         import traceback

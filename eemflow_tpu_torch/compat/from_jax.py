@@ -1,4 +1,5 @@
-"""Carry JAX EEMFlow, EEMFlow+, ERAFT and RAFT variables across to the port.
+"""Carry JAX EEMFlow, EEMFlow+, ERAFT, RAFT, GMA, SKFlow and KPAFlow
+variables across to the port.
 
 The inverse of ``torch_state_dict_to_flax`` with ``eemflow_alias``
 (``eemflow_tpu/compat/torch_loader.py:57-133``): a nested dict of numpy
@@ -56,39 +57,43 @@ def eemflow_state_dict_from_jax(
     return sd
 
 
-def _eraft_torch_path(path) -> str:
-    """A flax module path of the JAX ERAFT → the port's attribute path
-    (the inverse of ``eraft_alias``): ``layerX_N`` → ``layerX.N``,
-    ``downsample_0`` → ``downsample.0``, ``mask_N`` → ``mask.N``."""
+def _raft_torch_path(path) -> str:
+    """A flax module path of a JAX RAFT-line model → the port's attribute
+    path (the inverse of ``eraft_alias`` and ``digit_merge_alias``): every
+    ``name_N`` → ``name.N`` (``layer1_0`` → ``layer1.0``, ``downsample_0``
+    → ``downsample.0``, ``mask_2`` → ``mask.2``, SKFlow's ``conv_list_1``
+    and ``ffn1_0``, KPAFlow's ``C_cor_2``)."""
     out = []
     for p in path:
         head, _, idx = p.rpartition("_")
-        if idx.isdigit() and (head.startswith("layer") or head in ("downsample", "mask")):
-            out += [head, idx]
-        else:
-            out.append(p)
+        out += [head, idx] if head and idx.isdigit() else [p]
     return ".".join(out)
 
 
 def eraft_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ERAFT variables (``{"params": ..., "batch_stats": ...}``) → the
-    port's ``state_dict``: HWIO kernels → OIHW ``weight``, norm ``scale`` →
-    ``weight``, ``batch_stats`` mean/var → ``running_mean``/``running_var``
-    with ``num_batches_tracked`` 0; a strided block's ``norm3`` is written
-    under both of its torch spellings, ``norm3`` and ``downsample.1``."""
+    """JAX variables (``{"params": ..., "batch_stats": ...}``) of a RAFT-line
+    model (ERAFT, RAFT, GMA, SKFlow, KPAFlow) → the port's ``state_dict``:
+    HWIO kernels → OIHW ``weight``, norm ``scale`` → ``weight``,
+    ``batch_stats`` mean/var → ``running_mean``/``running_var`` with
+    ``num_batches_tracked`` 0, the attention gates (``gamma``, ``w_prelu``)
+    as they are; a strided block's ``norm3`` is written under both of its
+    torch spellings, ``norm3`` and ``downsample.1``."""
     sd: Dict[str, torch.Tensor] = {}
     leaves = {"kernel": "weight", "scale": "weight", "bias": "bias",
-              "mean": "running_mean", "var": "running_var"}
+              "mean": "running_mean", "var": "running_var", "gamma": "gamma", "w_prelu": "w_prelu"}
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(coll, {})):
             if path[-1] not in leaves:
-                raise ValueError(f"unexpected ERAFT {coll} leaf {'/'.join(path)}")
+                raise ValueError(f"unexpected {coll} leaf {'/'.join(path)}")
             a = np.array(leaf, np.float32)
+            if path[-1] in ("gamma", "w_prelu"):
+                sd[".".join(filter(None, (_raft_torch_path(path[:-1]), path[-1])))] = torch.from_numpy(a)
+                continue
             if path[-1] == "kernel":
                 if a.ndim != 4:
                     raise ValueError(f"{'/'.join(path)}: expected an HWIO kernel, got {a.shape}")
                 a = a.transpose(3, 2, 0, 1)
-            mod = _eraft_torch_path(path[:-1])
+            mod = _raft_torch_path(path[:-1])
             names = [mod]
             if path[-2] == "norm3":
                 names.append(mod[: -len("norm3")] + "downsample.1")
@@ -99,8 +104,10 @@ def eraft_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
-# RAFT's JAX modules have ERAFT's names (fnet, cnet, update_block)
-raft_state_dict_from_jax = eraft_state_dict_from_jax
+# the other RAFT-line models' JAX modules are named as ERAFT's where they
+# share a module, and their own as the reference's (digits after "_")
+raft_state_dict_from_jax = gma_state_dict_from_jax = eraft_state_dict_from_jax
+skflow_state_dict_from_jax = kpaflow_state_dict_from_jax = eraft_state_dict_from_jax
 
 
 def _eemflow_plus_torch_path(path) -> str:

@@ -7,7 +7,8 @@ key carries a ``module.`` prefix; the port's own training checkpoints
 (``train/checkpoint.py``, ``epoch_N.pt``) keep them under ``params``.
 The port's modules use the reference's attribute names and NCHW layout,
 so after unwrapping and stripping, and dropping the keys a family's
-forward never reads (EEMFlow+'s ``EEMFLOW_PLUS_DROP``), the dict loads
+forward never reads (EEMFlow+'s ``EEMFLOW_PLUS_DROP``, GMA's and SKFlow's
+relative position tables ``GMA_DROP``, KPAFlow's ``zero`` buffer), the dict loads
 with ``load_state_dict`` strictly.  RAFT takes ERAFT's layout, as the JAX
 ``convert_for_model`` gives every model it does not list.  ``load_model_checkpoint`` is that
 path, shared by the CLIs (``test_hrem``, ``serve``, ``time_eval``).
@@ -54,11 +55,23 @@ CHECKPOINT_SUFFIXES = (".pth", ".pth.tar", ".pt")
 
 
 def drop_prefixes(model_name: str) -> tuple:
-    """Checkpoint key prefixes with no live forward path in the family."""
+    """Checkpoint key prefixes with no live forward path in the family (the
+    JAX ``_model_converters``' drop lists)."""
+    from eemflow_tpu_torch.models.registry import ALIASES
+
+    model_name = ALIASES.get(model_name, model_name)
     if model_name == "eemflow_plus":
         from eemflow_tpu_torch.models.eemflow_plus import EEMFLOW_PLUS_DROP
 
         return EEMFLOW_PLUS_DROP
+    if model_name in ("gma", "skflow"):
+        from eemflow_tpu_torch.models.gma import GMA_DROP
+
+        return GMA_DROP
+    if model_name == "kpaflow":
+        from eemflow_tpu_torch.models.kpaflow import KPAFLOW_DROP
+
+        return KPAFLOW_DROP
     return ()
 
 

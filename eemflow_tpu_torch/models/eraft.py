@@ -156,13 +156,16 @@ class ERAFT(nn.Module):
 
 
 def raft_refine(update_block, pyramid, net, inp, coords0, coords1, n_iters, radius,
-                upsample_all: bool = True, stacked_lookup: bool = False, fused_apply=None) -> torch.Tensor:
+                upsample_all: bool = True, stacked_lookup: bool = False, fused_apply=None,
+                extra_args: tuple = ()) -> torch.Tensor:
     """The RAFT refinement loop (a Python loop over the iterations).  net and
     inp are NCHW, coords NHWC.  Returns the upsampled predictions
     [iters, B, 8h, 8w, 2], or [1, ...] of the final iterate when
     ``upsample_all=False``.  ``stacked_lookup``: the level stack is built
     here, once, and every iteration looks it up.  ``fused_apply(net, inp,
-    corr, flow)`` (NHWC) replaces the update block without its mask head."""
+    corr, flow)`` (NHWC) replaces the update block without its mask head.
+    ``extra_args`` follow the flow in every call of the update block (GMA's
+    and SKFlow's attention map)."""
     if stacked_lookup:
         stack, shapes = build_corr_stack(pyramid)
         lookup = lambda c: lookup_corr_stack(stack, shapes, c, radius)
@@ -186,7 +189,8 @@ def raft_refine(update_block, pyramid, net, inp, coords0, coords1, n_iters, radi
                 up_mask = update_block.upsample_mask(net.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         else:
             net, up_mask, delta = update_block(
-                net, inp, corr.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), compute_mask=upsample_all,
+                net, inp, corr.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), *extra_args,
+                compute_mask=upsample_all,
             )
             delta = delta.permute(0, 2, 3, 1)
             if up_mask is not None:

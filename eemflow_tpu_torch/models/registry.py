@@ -1,6 +1,7 @@
 """Model registry of the port (counterpart of
 ``eemflow_tpu/models/registry.py:32-100``): ``eemflow``, ``eemflow_plus``,
-``eraft`` and ``raft``, so far."""
+``eraft``, ``raft`` and the GMA line of baselines, ``gma``, ``skflow`` and
+``kpaflow``, so far."""
 
 from __future__ import annotations
 
@@ -9,13 +10,19 @@ import inspect
 from eemflow_tpu_torch.models.eemflow import EEMFlow
 from eemflow_tpu_torch.models.eemflow_plus import EEMFlowPlus
 from eemflow_tpu_torch.models.eraft import ERAFT
+from eemflow_tpu_torch.models.gma import RAFTGMA
+from eemflow_tpu_torch.models.kpaflow import KPAFlow
 from eemflow_tpu_torch.models.raft import RAFT
+from eemflow_tpu_torch.models.skflow import SKFlow
 
-MODEL_REGISTRY = {"eemflow": EEMFlow, "eemflow_plus": EEMFlowPlus, "eraft": ERAFT, "raft": RAFT}
+MODEL_REGISTRY = {
+    "eemflow": EEMFlow, "eemflow_plus": EEMFlowPlus, "eraft": ERAFT, "raft": RAFT,
+    "gma": RAFTGMA, "skflow": SKFlow, "kpaflow": KPAFlow,
+}
 
 # reference CLI spellings (train_EEMFlow_HREM.py:30-55) → registry names, the
 # JAX registry's for the models registered here
-ALIASES = {"EEMFlow": "eemflow"}
+ALIASES = {"EEMFlow": "eemflow", "GMA": "gma"}
 
 # parity-safe serving modes per family (same params, the same function in
 # another summation order), the CLIs' --fast.  The JAX registry's choice

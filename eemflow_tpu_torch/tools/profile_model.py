@@ -1,5 +1,5 @@
-"""Profile the port's eval step (EEMFlow, EEMFlow+ or ERAFT) or a train step
-(EEMFlow, EEMFlow+ or ERAFT) with ``torch.profiler`` (counterpart of ``tools/profile_model.py``): device
+"""Profile the port's eval step or a train step (EEMFlow, EEMFlow+, ERAFT,
+GMA, SKFlow or KPAFlow) with ``torch.profiler`` (counterpart of ``tools/profile_model.py``): device
 time by kernel, the device's busy share over the profiled window (the
 union of its kernels' and copies' intervals in the exported trace over the
 window's wall time), host milliseconds per call and the host's own time
@@ -13,7 +13,7 @@ with ``--train``, one train step on a raw-event batch already on the
 device (K1 voxelize per frame, forward, loss, backward, clip, AdamW;
 ``--bf16`` for the mixed-precision forward), ``--events`` (default 30,000)
 events per frame, ``--bins`` voxel bins: EEMFlow's against the 16×16
-meshflow label, EEMFlow+'s and ERAFT's against the full-resolution flow.  The weights are random (timing does not depend on
+meshflow label, the others' against the full-resolution flow.  The weights are random (timing does not depend on
 them).  Writes a Chrome trace to ``--logdir`` and prints one JSON line.
 
 Usage:
@@ -26,6 +26,8 @@ Usage:
   python -m eemflow_tpu_torch.tools.profile_model --train --size 720 1280 -bs 6 [--bf16]
   python -m eemflow_tpu_torch.tools.profile_model --train -model eemflow_plus --bins 15 -bs 6 [--bf16]
   python -m eemflow_tpu_torch.tools.profile_model --train -model eraft -bs 6 [--bf16]
+  python -m eemflow_tpu_torch.tools.profile_model [--train] -model kpaflow --size 256 256 -bs 6 [--bf16]
+      (also gma, skflow)
 """
 
 from __future__ import annotations
@@ -134,8 +136,6 @@ def _train_step(args, rng, device):
 def train_kwargs(args) -> dict:
     """The train step's model: EEMFlow at the meshflow label's resolution,
     the others at full resolution; the input channels the bins'."""
-    if args.model not in ("eemflow", "eemflow_plus", "eraft"):
-        raise SystemExit("--train profiles EEMFlow's, EEMFlow+'s or ERAFT's train step")
     kw = {"n_first_channels": args.bins}
     if args.model == "eemflow":
         kw["out_mesh_size"] = True

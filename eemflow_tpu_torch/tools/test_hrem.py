@@ -21,6 +21,8 @@ Usage:
   python -m eemflow_tpu_torch.tools.test_hrem -model eraft -int dt1 \
       --checkpoint eraft.pth.tar --max_samples 1 [--config cfg.json] [--stride 2]
   python -m eemflow_tpu_torch.tools.test_hrem -model raft -int dt1 --checkpoint raft.pth.tar
+  python -m eemflow_tpu_torch.tools.test_hrem -model gma -int dt1 --checkpoint gma.pth.tar \
+      [--device_voxelize]   (also -model skflow, kpaflow)
 """
 
 from __future__ import annotations

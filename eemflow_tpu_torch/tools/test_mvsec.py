@@ -1,6 +1,6 @@
 """MVSEC evaluation CLI of the port (counterpart of ``tools/test_mvsec.py``;
 reference ``test_mvsec.py``), for the two-volume models (``eemflow``,
-``eemflow_plus``, ``eraft``, ``raft``).
+``eemflow_plus``, ``eraft``, ``raft``, ``gma``, ``skflow``, ``kpaflow``).
 
 Evaluates one sequence under the dense or the sparse protocol with the
 reference's masks: the 256×256 centre crop of the validation frames,
@@ -22,6 +22,8 @@ Usage:
   python -m eemflow_tpu_torch.tools.test_mvsec -model eemflow -int dt1 \
       --sequence indoor_flying1 --data_root dataset/MVSEC --checkpoint <ckpt> \
       --eval_type dense --stride 30 [--device_voxelize] [--fast] [--eval_batch 2] [--device cpu]
+  python -m eemflow_tpu_torch.tools.test_mvsec -model kpaflow -int dt1 --checkpoint kpaflow.pth.tar \
+      [--device_voxelize]   (also -model gma, skflow)
 """
 
 from __future__ import annotations

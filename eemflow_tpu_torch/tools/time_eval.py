@@ -1,5 +1,6 @@
 """Time the eval forward of the port (counterpart of ``tools/time_eval.py``
-for ``-model eemflow``, ``eemflow_plus`` and ``eraft``): the user-facing
+for ``-model eemflow``, ``eemflow_plus``, ``eraft``, ``gma``, ``skflow`` and
+``kpaflow``): the user-facing
 A/B between the standard and the fused modes.
 
 On the card the forward is timed with CUDA events over ``--reps``
@@ -16,6 +17,7 @@ Usage:
       [--fast_pyramid --fast_decoders --fast_sgu [--fast_pyramid_bf16]]
   python -m eemflow_tpu_torch.tools.time_eval -model eraft --size 720 1280 -bs 1 \\
       [--fused_update | --fused_update_bf16] [--corr_fast]
+  python -m eemflow_tpu_torch.tools.time_eval -model gma --size 720 1280 -bs 1   (also skflow, kpaflow)
 """
 
 from __future__ import annotations
@@ -32,9 +34,13 @@ from eemflow_tpu_torch.device import resolve_device
 from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 
 
+# the models the tools time and profile
+MODELS = ["eemflow", "eemflow_plus", "eraft", "gma", "skflow", "kpaflow"]
+
+
 def add_mode_flags(p: argparse.ArgumentParser) -> None:
     """The model and its eval modes, as the JAX tool spells them."""
-    p.add_argument("-model", default="eemflow", choices=["eemflow", "eemflow_plus", "eraft"])
+    p.add_argument("-model", default="eemflow", choices=MODELS)
     p.add_argument("--fast_head", action="store_true",
                    help="the whole coarse stage as one kernel (K4; f32 math, parity to "
                    "fp noise)")

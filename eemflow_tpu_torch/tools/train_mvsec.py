@@ -1,6 +1,7 @@
 """MVSEC training CLI of the port (counterpart of ``tools/train_mvsec.py``;
 reference ``train_mvsec.py`` engine), for the two-volume models
-(``eemflow``, ``eemflow_plus``, ``eraft``, ``raft``).
+(``eemflow``, ``eemflow_plus``, ``eraft``, ``raft``, ``gma``, ``skflow``,
+``kpaflow``).
 
 Builds a registry model with its parameters drawn from ``--seed`` and its
 input channels from the config's ``num_voxel_bins``, loads a JSON config
@@ -21,6 +22,8 @@ Usage:
   python -m eemflow_tpu_torch.tools.train_mvsec -model eraft -int dt1 \
       --sequence outdoor_day2 --data_root dataset/MVSEC --config configs/mvsec_eraft.json \
       -bs 6 --lr 1e-4 [-se N] [--device_voxelize] [--bf16] [--device cpu]
+  python -m eemflow_tpu_torch.tools.train_mvsec -model skflow --config configs/mvsec_skflow.json -bs 6 [...]
+      (also gma with configs/mvsec_gma.json, kpaflow with configs/mvsec_kpaflow.json)
 """
 
 from __future__ import annotations

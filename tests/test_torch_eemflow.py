@@ -112,7 +112,7 @@ def test_registry():
     with pytest.raises(ValueError, match="does not support"):
         get_eval_model("eemflow", fast_decoders=True)
     with pytest.raises(KeyError):
-        get_model("gma")
+        get_model("gmflow")
 
 
 FAST_MODES = {

@@ -79,6 +79,7 @@ print("imported", len({modules!r}), "modules")
 def test_port_imports_with_jax_blocked():
     modules = [_module_name(p) for p in _port_files()]
     assert "eemflow_tpu_torch.tools.test_mvsec" in modules and "eemflow_tpu_torch.data.mvsec" in modules
+    assert {f"eemflow_tpu_torch.models.{m}" for m in ("gma", "skflow", "kpaflow")} <= set(modules)
     code = BLOCKER.format(forbidden=BLOCKED_AT_IMPORT, modules=modules)
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300

@@ -126,22 +126,23 @@ def test_train_cli_two_steps(root, small_sensor, tmp_path, model, config, extra)
 
 def test_train_cli_refuses_other_families(root):
     with pytest.raises(KeyError, match="item 7"):
-        train_cli(["-model", "gma", "--data_root", root, "--device", "cpu"])
+        train_cli(["-model", "gma_rnn", "--data_root", root, "--device", "cpu"])
 
 
 def test_mvsec_configs_of_registered_models():
-    """Each MVSEC config of the four registered models: the port forwards
-    the model fields JAX forwards (none beyond the defaults), and the model
+    """Each MVSEC config of the registered models: the port forwards the
+    model fields JAX forwards (SKFlow's and KPAFlow's iterations, widths and
+    patch sizes; none beyond the defaults for the others), and the model
     builds at the config's bins."""
     seen = set()
     for path in sorted(glob.glob(os.path.join(REPO, "configs", "mvsec_*.json"))):
         cfg = load_config(path)
         model = cfg.get("model")
-        if model not in ("eemflow", "eemflow_plus", "eraft", "raft"):
+        if model not in ("eemflow", "eemflow_plus", "eraft", "raft", "gma", "skflow", "kpaflow"):
             continue
         seen.add(model)
         kwargs = model_kwargs_from_config(model, cfg)
         assert kwargs == jax_model_kwargs(model, cfg), path
         bins = cfg["data_loader"]["train"]["args"]["num_voxel_bins"]
         get_model(model, n_first_channels=bins, **kwargs)
-    assert seen == {"eemflow", "eraft", "raft"}
+    assert seen == {"eemflow", "eraft", "raft", "gma", "skflow", "kpaflow"}
