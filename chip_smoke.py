@@ -4,6 +4,8 @@ NVIDIA GPU: the quickest proof that the port builds, is right and runs
 its main paths on the card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 0,1,2,3e    # only the named phases (0 and
+                                               # 1 always; 4 needs 2-3e)
     python3 chip_smoke.py --k3-bf16-seeds 20   # only K3's bf16 check on
                                                # EEMFlow+'s chains, 20 draws
 
@@ -120,6 +122,18 @@ where it stopped:
      128×128 B=2 (3 iterations, gates nonzero) on the card against the CPU
      in units of the model's largest gradient; 20 steps on one batch
      lowering its loss in bf16 and float32; the phase's seconds;
+  3e. transformers: GMFlow and FlowFormer (a generator of their own): the
+     golden checkpoints through ``test_hrem`` at 720×1280 on the host path
+     and with ``--device_voxelize`` (K1), with their launch counts, within
+     0.01 of the golden AEE and the device path within 1e-4 of the host
+     path; 256×256 B=1 forwards on seeded weights (GMFlow one-scale and
+     two-scale, whose local matching is K2's, FlowFormer at decoder depth
+     3 with its gate nonzero) on the card against the CPU within
+     1e-4·max(1, largest |flow|); ``train_mvsec`` with each model's config
+     at its batch (GMFlow 8, FlowFormer 6) in bf16 and float32 with their
+     launch counts; one float32 train step at 128×128 B=2 on the card
+     against a float64 step on the CPU; 20 steps on one batch lowering its
+     loss in bf16 and float32; the phase's seconds;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
@@ -165,12 +179,15 @@ where it stopped:
      back and their device busy time, SKFlow's and KPAFlow's first kernels
      by device time, SKFlow's 15×15 depthwise convs by their share of the
      forward, and the three B=6 MVSEC train steps with their configs in bf16
-     and float32 (ms, busy share, peak memory).
+     and float32 (ms, busy share, peak memory); then GMFlow and FlowFormer:
+     each one's 720×1280 and 256×256 B=1 forwards (golden weights) back to
+     back, their busy share, first kernels and peak memory, and each one's
+     MVSEC train step at its config's batch in bf16 and float32.
 
 Then one JSON line of the train step's times (``{"train_step": ...}``:
 EEMFlow's under ``bf16`` and ``float32``, EEMFlow+'s and ERAFT's under
 their names with their ``batch``, the zoo's forwards and MVSEC train steps
-under ``zoo``), one
+under ``zoo``, GMFlow's and FlowFormer's under ``transformers``), one
 of every ported kernel (``ms`` is device time; for K1 ``voxel_scatter`` at
 2·10^5 events a frame, with ``voxelize_*`` and ``*_30k`` beside it; for K2
 the three levels of a B=1 forward, float32, ``bf16_*`` on bf16 operands
@@ -181,8 +198,9 @@ of its 9 chains in one fused forward, after an L2 flush; for
 K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
 the time per wrapper call back to back; ``standard_ms`` the device time of
 the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
-for K1 and K2 (K1's ``launches`` include phase 3d's device-voxelize
-runs), ``launches_per_train_step_eemflow_plus`` and ``_eraft``
+for K1 and K2 (K1's ``launches`` include phases 3d's and 3e's device-voxelize
+runs, K2's the two-scale GMFlow forward of phase 3e),
+``launches_per_train_step_eemflow_plus`` and ``_eraft``
 beside it; ``mvsec_*`` fields: the kernel at MVSEC's shapes and its
 launches on the MVSEC paths of phase 3c), and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -609,6 +627,19 @@ def phase_parity(device: torch.device) -> dict:
         say(f"K2 local_corr {list(shape)} K=53: max|Δ| {err:.3e} (tolerance {K2_TOL:g})")
         require(tuple(got.shape) == shape[:3] + (53,) and err <= K2_TOL,
                 f"K2 disagrees with its twin at {shape}")
+    # GMFlow's two-scale local matching (phase 3e): 1/4 of 256x256, C=128,
+    # the full 9x9 window; a generator of its own, so that every other case
+    # draws what it drew before
+    gm_rng = np.random.default_rng(17)
+    shape = (2, 64, 64, 128)
+    x, y = (torch.from_numpy(gm_rng.standard_normal(shape).astype(np.float32)).to(device) for _ in range(2))
+    got, ref = k2.local_corr(x, y, 4), k2.plain(x, y, 4)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    k2_err = max(k2_err, err)
+    say(f"K2 local_corr {list(shape)} K=81 (GMFlow's two-scale local matching): max|Δ| {err:.3e} (tolerance "
+        f"{K2_TOL:g})")
+    require(tuple(got.shape) == shape[:3] + (81,) and err <= K2_TOL, f"K2 disagrees with its twin at {shape}, K=81")
     levels_err, k2_bf16_err = phase_parity_k2_levels(device, rng)
     k2_err = max(k2_err, levels_err)
     phase_parity_k2_backward(device, rng)
@@ -1884,8 +1915,10 @@ def times_train(device: torch.device, tmp: str, two_volume: dict) -> dict:
 
     root = os.path.join(tmp, "hrem_train")
     out = {}
-    models = [("eemflow", TRAIN_BATCH, 10, 5)] + [(n, info["batch"], 5, 3) for n, info in two_volume.items()]
-    for name, batch_size, reps, prof_reps in models:
+    # (name, batch, warm-ups, reps, profiled reps): EEMFlow+'s and ERAFT's
+    # steps take 0.2-2.2 s, so they take fewer
+    models = [("eemflow", TRAIN_BATCH, 3, 5, 3)] + [(n, info["batch"], 1, 2, 1) for n, info in two_volume.items()]
+    for name, batch_size, warmups, reps, prof_reps in models:
         bins = TWO_VOLUME[name]["bins"] if name in TWO_VOLUME else BINS
         batch = train_batch(root, device, batch=batch_size, full_res_flow=name != "eemflow")
         times = {"batch": batch_size} if name != "eemflow" else out
@@ -1893,7 +1926,7 @@ def times_train(device: torch.device, tmp: str, two_volume: dict) -> dict:
             state = train_state(device, name=name)
             step = make_train_step(preprocess=make_device_preprocess(bins, H, W), mixed_precision=mp)
             run = lambda: step(state, batch)
-            for _ in range(3):
+            for _ in range(warmups):
                 run()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
@@ -2246,12 +2279,12 @@ SERVE_TIMED = (
     ("host_voxelize", ["--host_voxelize"]), ("host_voxelize stream", ["--host_voxelize", "--stream"]),
     ("bf16", ["--bf16"]), ("fast", ["--fast"]), ("fast stream", ["--fast", "--stream"]),
 )
-SERVE_LOOPS = 4
+SERVE_LOOPS = 2  # passes over the 8 frames a timed serve run (two keep the whole run's clock)
 
 
 def times_serve(device, tmp: str) -> None:
     """The serving CLI on phase 3's serving stream (8 samples, ``--loops
-    4``, one warm-up batch untimed) at B=1 and B=2 in each mode: wall fps,
+    2``, one warm-up batch untimed) at B=1 and B=2 in each mode: wall fps,
     host decode and dispatch ms a frame (the CLI's report), and the
     device's busy share of the timed window from a second run under
     ``--profile``."""
@@ -2942,12 +2975,15 @@ class mvsec_train_frames:
     """The train sequence's valid range set to the fixture's frames (the
     training CLI, like JAX's, has no --frames), restored on exit."""
 
+    def __init__(self, frames=MVSEC_TRAIN_FRAMES):
+        self.frames = frames
+
     def __enter__(self):
         import eemflow_tpu_torch.data.mvsec as mvsec
 
         self.table = mvsec.VALID_TIME_INDEX
         self.old = self.table[MVSEC_TRAIN_SEQUENCE]
-        self.table[MVSEC_TRAIN_SEQUENCE] = [MVSEC_TRAIN_FRAMES]
+        self.table[MVSEC_TRAIN_SEQUENCE] = [self.frames]
 
     def __exit__(self, *exc):
         self.table[MVSEC_TRAIN_SEQUENCE] = self.old
@@ -3068,20 +3104,21 @@ def phase_mvsec(device: torch.device, tmp: str) -> dict:
     return launches
 
 
-def mvsec_train_batch(root: str, device, config: str, raw: bool, seed: int = 0) -> dict:
-    """One B=6 batch of the MVSEC train split as the training CLI makes it
-    (the config's augmentation; raw events with flips and crop offsets, or
-    host grids through the resize branch), on the card."""
+def mvsec_train_batch(root: str, device, config: str, raw: bool, seed: int = 0, batch: int = TRAIN_BATCH,
+                      frames=MVSEC_TRAIN_FRAMES) -> dict:
+    """One batch (B=6 by default) of the MVSEC train split as the training
+    CLI makes it (the config's augmentation; raw events with flips and crop
+    offsets, or host grids through the resize branch), on the card."""
     from eemflow_tpu_torch.data.loader import collate
     from eemflow_tpu_torch.data.mvsec import MvsecEventFlow
     from eemflow_tpu_torch.train.trainer import batch_to_device
 
     with open(os.path.join(REPO, "configs", config)) as f:
         aug = json.load(f)["data_loader"]["train"]["args"]["aug_params"]
-    with mvsec_train_frames():
+    with mvsec_train_frames(frames):
         ds = MvsecEventFlow(root, MVSEC_TRAIN_SEQUENCE, train=True, aug_params=aug, raw_events=raw,
                             bucket_rungs=4, rng=np.random.default_rng(seed))
-        return batch_to_device(collate([ds[i] for i in range(TRAIN_BATCH)]), device)
+        return batch_to_device(collate([ds[i] for i in range(batch)]), device)
 
 
 def mvsec_train_state(device, name: str, lr: float):
@@ -3102,15 +3139,16 @@ def mvsec_step(name: str, mixed_precision: bool):
     return make_train_step(preprocess=pre, mixed_precision=mixed_precision)
 
 
-def mvsec_steps_lower_the_loss(device, root: str, name: str, config: str, extra: list, lr: float) -> None:
-    """20 steps on one fixed MVSEC B=6 batch lower its loss, in bf16 and in
-    float32."""
-    data = mvsec_train_batch(root, device, config, raw="--device_voxelize" in extra)
+def mvsec_steps_lower_the_loss(device, root: str, name: str, config: str, extra: list, lr: float,
+                               batch: int = TRAIN_BATCH, frames=MVSEC_TRAIN_FRAMES) -> None:
+    """20 steps on one fixed MVSEC batch (B=6 by default) lower its loss, in
+    bf16 and in float32."""
+    data = mvsec_train_batch(root, device, config, raw="--device_voxelize" in extra, batch=batch, frames=frames)
     for label, mp in (("bf16", True), ("float32", False)):
         state = mvsec_train_state(device, name, lr)
         step = mvsec_step(name, mp)
         losses = [float(step(state, data)[1]["loss"]) for _ in range(20)]
-        say(f"20 {label} MVSEC {name} steps (lr {lr:g}) on one 256x256 B={TRAIN_BATCH} batch: loss "
+        say(f"20 {label} MVSEC {name} steps (lr {lr:g}) on one 256x256 B={batch} batch: loss "
             f"{losses[0]:.6f} → {losses[-1]:.6f} (every 5th: {[round(x, 6) for x in losses[::5]]})")
         require(all(np.isfinite(losses)) and losses[-1] < losses[0],
                 f"20 {label} MVSEC {name} steps on one batch did not lower its loss")
@@ -3397,7 +3435,7 @@ def phase_zoo(device: torch.device, tmp: str) -> dict:
     t_phase = time.perf_counter()
     rng = np.random.default_rng(15)
     fixtures = os.path.join(REPO, "tests", "fixtures")
-    hrem_root = os.path.join(tmp, "hrem")  # phase 3's seed-99 split
+    hrem_root = hrem_split(tmp)
     # the MVSEC sequence of the JAX package's golden checks
     # (tests/test_golden_acceptance.make_mvsec_fixture), draw for draw
     golden_mvsec = make_mvsec_fixture(tmp, n_events=20000, sequences=(("indoor_flying1", 2, 18),), t0=0.0,
@@ -3458,7 +3496,7 @@ def phase_zoo(device: torch.device, tmp: str) -> dict:
 
     # train_mvsec at B=6 with each model's own config, its launch counts set
     # to 0 just before each run
-    root = os.path.join(tmp, "mvsec")  # phase 3c's train sequence
+    root = mvsec_split(tmp)
     with mvsec_train_frames():
         for name in ZOO:
             config = f"mvsec_{name}.json"
@@ -3609,26 +3647,402 @@ def times_zoo(device, tmp: str) -> dict:
     return out
 
 
-def run(device: torch.device) -> dict:
+# GMFlow and FlowFormer (phase 3e): their golden checkpoints on phase 3's
+# seed-99 HREM split at 720x1280 (one sample), each on the host path and
+# with --device_voxelize; the card against the CPU at 256x256 B=1 on seeded
+# weights; train_mvsec with each model's own config at its batch (GMFlow
+# B=8, FlowFormer B=6) on an MVSEC train sequence of eight samples
+TRANSFORMERS = ("gmflow", "flowformer")
+TRANSFORMER_GOLDENS = {"gmflow": ("gmflow_hrem_golden.pth.tar", "hrem_golden_gmflow.json"),
+                       "flowformer": ("flowformer_hrem_golden.pth.tar", "hrem_golden_flowformer.json")}
+TRANSFORMER_BATCH = {"gmflow": 8, "flowformer": 6}  # configs/mvsec_<name>.json
+GMFLOW_TWO_SCALE = dict(num_scales=2, upsample_factor=4, attn_splits_list=(2, 2), corr_radius_list=(-1, 4),
+                        prop_radius_list=(-1, 1))
+# (label, model, fields, K2 launches a forward) of the 256x256 card-vs-CPU
+# forwards: the two-scale GMFlow's local matching at 1/4 (64x64, C=128,
+# md=4, the full 9x9 window) is K2's
+TRANSFORMER_FORWARDS = (("GMFlow one-scale", "gmflow", {}, 0),
+                        ("GMFlow two-scale", "gmflow", GMFLOW_TWO_SCALE, 1),
+                        ("FlowFormer, decoder depth 3", "flowformer", {"decoder_depth": 3}, 0))
+# GMFlow's LayerNorm scales and its encoder's output conv at this share of
+# their draws: at the full draws its softmax matching is a near-argmax at
+# 256x256 (flows reach the frame's edge, ~200 px), where a float32 rounding
+# moves a pixel's match, on either device (the two-scale one's float32
+# flow lies pixels from a float64 run); at 0.3 the flows are 20-30 px and
+# the card within a few 1e-6 of max(1, |flow|) of the CPU
+GMFLOW_SOFT = 0.3
+TRANSFORMER_PATH_TOL = 1e-4
+TRANSFORMER_LR = 1e-4  # the 20-step loss check
+MVSEC_3E_FRAMES = (3, 11)  # eight train samples, GMFlow's B=8
+
+
+def transformer_seeded(model, rng, soft: float = 1.0):
+    """Draw a GMFlow's or FlowFormer's weights from ``rng`` as the CPU tests
+    draw the JAX model's (``tests/test_torch_gmflow.seeded_transformer_variables``):
+    conv weights normal with variance 2/fan_in (1/fan_in in a GRU), linear
+    weights 1/fan_in, biases N(0, 0.01²), LayerNorm scales uniform in [0.8,
+    1.2], the gate ``gamma`` uniform in [0.5, 1.5], the latent tokens N(0,
+    1); FlowFormer's ``channel_convertor`` at a tenth of its deviation
+    (``tests/test_torch_flowformer.py``: its cost volume has no 1/√C);
+    GMFlow's LayerNorm scales and encoder output conv times ``soft``.
+    Returns the model."""
+    def normal(shape, std):
+        return torch.from_numpy(rng.standard_normal(shape) * std).float()
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            mod, _, leaf = name.rpartition(".")
+            if leaf == "weight" and p.dim() > 1:
+                fan_in = p[0].numel()
+                var = (1.0 if p.dim() == 2 or ".gru." in f".{mod}." else 2.0) / fan_in
+                if mod.endswith("channel_convertor"):
+                    var *= 0.01
+                p.copy_(normal(p.shape, np.sqrt(var) * (soft if mod == "backbone.conv2" else 1.0)))
+            elif leaf == "weight":
+                p.copy_(torch.from_numpy(rng.uniform(0.8, 1.2, p.shape) * soft).float())
+            elif leaf == "gamma":
+                p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)).float())
+            elif leaf == "latent_tokens":
+                p.copy_(normal(p.shape, 1.0))
+            else:
+                p.copy_(normal(p.shape, 0.01))
+    return model
+
+
+def hrem_split(tmp: str) -> str:
+    """Phase 3's seed-99 HREM split, made here when phase 3 did not run."""
+    root = os.path.join(tmp, "hrem")
+    if not os.path.isdir(root):
+        with open(GOLDEN_JSON) as f:
+            make_hrem_fixture(tmp, seed=json.load(f)["fixture_seed"])
+    return root
+
+
+def mvsec_split(tmp: str) -> str:
+    """Phase 3c's MVSEC sequences, made here when phase 3c did not run."""
+    root = os.path.join(tmp, "mvsec")
+    return root if os.path.isdir(root) else make_mvsec_fixture(tmp)
+
+
+def phase_transformers(device: torch.device, tmp: str) -> dict:
+    """GMFlow and FlowFormer through the port's CLIs: the golden checkpoints
+    through ``test_hrem`` at 720x1280 on the host path and with
+    ``--device_voxelize`` (K1), each run's launch counts set to 0 just
+    before it and read just after; the card against the CPU at 256x256 B=1
+    on seeded weights (GMFlow one-scale, two-scale with its K2 launch,
+    FlowFormer at decoder depth 3 with its gate nonzero); ``train_mvsec``
+    with each model's own config at its batch in bf16 (host grids) and
+    float32 (``--device_voxelize``); one float32 train step on the card
+    against the CPU at 128x128 B=2; 20 steps on one batch lowering its loss
+    in bf16 and float32.  Draws from a generator of its own.  Returns the
+    K1 calls and K2 launches of its runs."""
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.tools.test_hrem import main as test_hrem
+    from eemflow_tpu_torch.tools.train_mvsec import main as train_mvsec
+
+    phase("3e transformers: GMFlow and FlowFormer: goldens (HREM 720x1280), the card against the CPU, train_mvsec "
+          "with their configs")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    hrem_root = hrem_split(tmp)
+    calls = {"voxel_scatter": 0, "local_corr": 0}
+    others = ("fused_convs_pool", "coarse_head", "update_block")
+    for name in TRANSFORMERS:
+        ckpt, golden_json = TRANSFORMER_GOLDENS[name]
+        with open(os.path.join(fixtures, golden_json)) as f:
+            golden = json.load(f)
+        aee = {}
+        for label, extra, k1 in (("host voxelize", [], 0), ("device voxelize", ["--device_voxelize"], 2)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = test_hrem(["-model", name, "-int", "dt1", "--checkpoint", os.path.join(fixtures, ckpt),
+                             "--max_samples", str(golden["max_samples"]), "--device", str(device), "--data_root",
+                             hrem_root, "--save_dir", os.path.join(tmp, "out_transformers"), *extra])
+            aee[label] = res["mean"]["AEE"]
+            counts = dict(launch_counts)
+            say(f"{name} golden (HREM 720x1280), {label}: AEE {aee[label]:.7f} in {time.perf_counter() - t0:.1f} s; "
+                f"launches {counts}")
+            require(counts["voxel_scatter"] == k1 and counts["local_corr"] == 0 and all(counts[k] == 0 for k in others),
+                    f"{name} {label}: launches {counts}, not K1 {k1} and no other kernel")
+            calls["voxel_scatter"] += counts["voxel_scatter"]
+        host, dev = aee["host voxelize"], aee["device voxelize"]
+        say(f"{name}: golden AEE {golden['aee']:.7f}, host path |Δ| {abs(host - golden['aee']):.3e} (tolerance "
+            f"{GOLDEN_TOL:g}); device voxelize vs host path |Δ| {abs(dev - host):.3e} (tolerance "
+            f"{TRANSFORMER_PATH_TOL:g})")
+        require(abs(host - golden["aee"]) < GOLDEN_TOL and abs(dev - host) <= TRANSFORMER_PATH_TOL,
+                f"{name}: the golden AEE drifted or the device path differs from the host path")
+
+    # the card against the CPU at 256x256 B=1, seeded weights
+    for label, name, fields, k2 in TRANSFORMER_FORWARDS:
+        model = transformer_seeded(get_eval_model(name, **fields), rng, GMFLOW_SOFT if name == "gmflow" else 1.0)
+        ev1, ev2 = (torch.from_numpy(rng.standard_normal((1, MVSEC_CROP, MVSEC_CROP, BINS)).astype(np.float32))
+                    for _ in range(2))
+        with torch.inference_mode():
+            ref = model(ev1, ev2)[1]
+            model.to(device)
+            reset_launch_counts()
+            got = model(ev1.to(device), ev2.to(device))[1].cpu()
+            counts = dict(launch_counts)
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        say(f"{label} forward 256x256 B=1 (every prediction), card vs CPU: max|Δ| {err:.3e} (tolerance "
+            f"{FORWARD_TOL:g}·{scale:.3f}); largest flow {float(ref.abs().max()):.3f}; K2 launches {counts['local_corr']}")
+        require(bool(torch.isfinite(got).all()) and err <= FORWARD_TOL * scale and counts["local_corr"] == k2,
+                f"{label}: the forward on the card disagrees with the CPU or did not launch K2 {k2} times")
+        calls["local_corr"] += counts["local_corr"]
+        del model
+
+    # train_mvsec with each model's own config at its batch
+    mvsec = make_mvsec_fixture(tmp, seed=57, sequences=((MVSEC_TRAIN_SEQUENCE, MVSEC_3E_FRAMES[0],
+                                                         MVSEC_3E_FRAMES[1] + 2),), name="mvsec_3e")
+    with mvsec_train_frames(MVSEC_3E_FRAMES):
+        for name in TRANSFORMERS:
+            config, bs = f"mvsec_{name}.json", TRANSFORMER_BATCH[name]
+            for label, mp, extra, k1_step in ZOO_TRAIN_PATHS:
+                save = os.path.join(tmp, f"transformer_train_{name}_{int(mp)}")
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                state = train_mvsec([
+                    "-model", name, "--config", train_config(tmp, mp, config), "--data_root", mvsec, "--sequence",
+                    MVSEC_TRAIN_SEQUENCE, "-bs", str(bs), "--train_iters", str(MVSEC_TRAIN_STEPS),
+                    "--val_iters", str(MVSEC_TRAIN_STEPS // 2), "--save_dir", save, "--device", str(device), *extra,
+                ])
+                counts = dict(launch_counts)
+                run = os.path.join(save, os.listdir(save)[0])
+                recs = [r for r in read_jsonl(os.path.join(run, "metrics.jsonl")) if r["kind"] == "epoch"]
+                say(f"train_mvsec {name} {label}, B={bs}: {MVSEC_TRAIN_STEPS} steps in {time.perf_counter() - t0:.1f} s"
+                    f"; epochs {[(r['epoch'], r['n_steps'], r['mean_loss']) for r in recs]}; launches {counts}")
+                require(state.step == MVSEC_TRAIN_STEPS and len(recs) == 2
+                        and all(np.isfinite(r["mean_loss"]) for r in recs)
+                        and all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+                        f"{name} {label}: the run did not take its steps with finite losses")
+                require(counts["voxel_scatter"] == k1_step * MVSEC_TRAIN_STEPS and counts["local_corr"] == 0
+                        and all(counts[k] == 0 for k in others),
+                        f"{name} {label}: launches {counts}, not K1 {k1_step} a step and no other kernel")
+                calls["voxel_scatter"] += counts["voxel_scatter"]
+                del state
+            transformer_step_card_vs_cpu(device, name, rng)
+            mvsec_steps_lower_the_loss(device, mvsec, name, config, [], TRANSFORMER_LR, batch=bs,
+                                       frames=MVSEC_3E_FRAMES)
+            torch.cuda.empty_cache()
+    say(f"phase 3e took {time.perf_counter() - t_phase:.1f} s; its K1 calls and K2 launches {calls}")
+    return calls
+
+
+# the instance-norm encoders: their float32 weight gradients sum terms that
+# cancel to ~1e-3 of their size, and cuDNN (PyTorch's instance norm runs its
+# normalisation there) computes them less exactly than the CPU: against the
+# CPU's float64 step GMFlow's backbone leaves lie 1.3e-2 of the model's
+# largest |g| on an H100 with cuDNN (the strided 1x1 shortcut's weight),
+# ~7e-4 with cuDNN off and on the CPU in float32 (this step's line prints
+# all three).  So each side's float32 step is held against a float64 step
+# on the CPU: these leaves within ENCODER_GRAD_TOL of the model's largest
+# |g|, every other within TRAIN_GRAD_TOL, the whole gradient within
+# WHOLE_GRAD_TOL relative L2 (GMFlow's card 4.9e-3)
+TRANSFORMER_ENCODERS = ("backbone.", "context_encoder.", "memory_encoder.feat_encoder.")
+ENCODER_GRAD_TOL = 2e-2
+WHOLE_GRAD_TOL = 1e-2
+
+
+def transformer_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
+    """One float32 train step of ``name`` (FlowFormer at decoder depth 3;
+    device voxelize with flips, forward, loss, backward, clip, AdamW) from
+    the same seeded parameters and batch at 128x128, B=2, on the card and on
+    the CPU, and the step's gradient on the CPU in float64 from the card's
+    voxel grids: the card's loss against the CPU's, its gradients against
+    the float64 ones (see ``TRANSFORMER_ENCODERS``; the card's without
+    cuDNN and the CPU's float32 distances printed beside them)."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.models.registry import get_model
+    from eemflow_tpu_torch.train.loss import sequence_loss
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state
+
+    fields = {"decoder_depth": 3} if name == "flowformer" else {}
+    h, w, B, N = 128, 128, 2, 4096
+    params = transformer_seeded(get_model(name, **fields), rng, GMFLOW_SOFT if name == "gmflow" else 1.0).state_dict()
+    ev, nv = k1_batch(rng, (N, N - 100, N - 7, N), N=N, h=h, w=w)
+    batch = {
+        "events_old": ev[:B], "events_new": ev[B:], "n_old": nv[:B], "n_new": nv[B:],
+        "flip_h": np.array([True, False]), "flip_v": np.array([False, True]),
+        "flow": (rng.standard_normal((B, h, w, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, h, w), np.float32),
+    }
+    runs = step_on_cpu_and_card(
+        device, lambda dev: create_train_state(get_model(name, **fields), 0, make_optimizer(1e-4, num_steps=100),
+                                               params=params, device=dev), batch, BINS, h, w)
+    (loss_cpu, g_cpu, n_cpu), (loss_gpu, g_gpu, n_gpu) = runs["cpu"], runs["card"]
+
+    # the step's gradient in float64 on the CPU from the card's voxel grids
+    # (K1 sums a cell's votes in another order than the CPU's plain version)
+    with torch.no_grad():
+        grids = make_device_preprocess(BINS, h, w)({k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+    model = get_model(name, **fields)
+    model.load_state_dict(params)
+    model.double().train()
+    cast = {k: v.cpu().double() if v.is_floating_point() else v.cpu() for k, v in grids.items()}
+    _, preds = model(cast["event_volume_old"], cast["event_volume_new"], train=True)
+    sequence_loss(preds, cast["flow"], cast["valid"])[0].backward()
+    g64 = {n: p.grad.detach() for n, p in model.named_parameters()}
+
+    def dist(g):
+        top = max(float(r.abs().max()) for r in g64.values())
+        worst = {enc: max((float((g[n].double() - r).abs().max()) for n, r in g64.items()
+                           if n.startswith(TRANSFORMER_ENCODERS) == enc), default=0.0) / top for enc in (True, False)}
+        whole = float(torch.cat([(g[n].double() - r).flatten() for n, r in g64.items()]).norm()
+                      / torch.cat([r.flatten() for r in g64.values()]).norm())
+        return worst[True], worst[False], whole
+
+    # the card again without cuDNN (the native convolutions and norms), for
+    # the report: where the card's float32 error comes from
+    torch.backends.cudnn.enabled = False
+    try:
+        model = get_model(name, **fields)
+        model.load_state_dict(params)
+        model.to(device).train()
+        _, preds = model(grids["event_volume_old"], grids["event_volume_new"], train=True)
+        sequence_loss(preds, grids["flow"], grids["valid"])[0].backward()
+        g_native = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.enabled = True
+    card, cpu, native = dist(g_gpu), dist(g_cpu), dist(g_native)
+    say(f"{name}: one float32 train step at {h}x{w} B={B}, card (K1 calls, K2 launches {n_gpu}) vs CPU ({n_cpu}): "
+        f"loss {loss_gpu:.7f} vs {loss_cpu:.7f} (|Δ| relative {abs(loss_gpu - loss_cpu) / loss_cpu:.3e}, tolerance "
+        f"{TRAIN_LOSS_RTOL:g}); grads against the float64 step on the CPU from the card's voxel grids, in units "
+        f"of its largest |g|: the card's encoder "
+        f"leaves {card[0]:.3e} (tolerance {ENCODER_GRAD_TOL:g}), the rest {card[1]:.3e} (tolerance {TRAIN_GRAD_TOL:g}), "
+        f"the whole gradient {card[2]:.3e} relative L2 (tolerance {WHOLE_GRAD_TOL:g}); the card without cuDNN "
+        f"{native[0]:.3e}, {native[1]:.3e}, {native[2]:.3e}; the CPU's float32 {cpu[0]:.3e}, {cpu[1]:.3e}, {cpu[2]:.3e}")
+    require(n_gpu == (2, 0) and n_cpu == (0, 0), f"{name}: the card's train step did not run K1 twice")
+    require(np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
+            and card[0] <= ENCODER_GRAD_TOL and card[1] <= TRAIN_GRAD_TOL and card[2] <= WHOLE_GRAD_TOL,
+            f"{name}: the train step on the card disagrees with the CPU's float64 step")
+
+
+def times_transformers(device, tmp: str) -> dict:
+    """Phase 4 for GMFlow and FlowFormer: each model's 720x1280 B=1 eval
+    forward (golden weights) and 256x256 B=1 forward, back to back (CUDA
+    events), the device's busy time in one profiled run, the first kernels
+    by device time and the peak memory; each model's MVSEC train step at its
+    config's batch (host grids) in bf16 and float32: ms back to back, busy
+    share, peak memory."""
+    from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    out = {}
+    for name in TRANSFORMERS:
+        for h, w in ((H, W), (MVSEC_CROP, MVSEC_CROP)):
+            model = get_eval_model(name)
+            load_model_checkpoint(model, os.path.join(fixtures, TRANSFORMER_GOLDENS[name][0]), name, log=say)
+            model.to(device)
+            x1, x2 = (torch.randn(1, h, w, BINS, device=device) for _ in range(2))
+
+            def forward(m=model):
+                with torch.inference_mode():
+                    return m(x1, x2)[1][-1]
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            flow = forward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            require(tuple(flow.shape) == (1, h, w, 2) and bool(torch.isfinite(flow).all()),
+                    f"the {h}x{w} {name} forward is not finite or has the wrong shape")
+            b2b = cuda_ms(forward, reps=3 if h == H else 10, warmup=1)
+            prof = profiled_step(forward, reps=1, tmp=tmp)
+            _, line = top_kernels(forward, 5)
+            say(f"{name} forward {h}x{w} B=1: {b2b:.3f} ms back to back ({1e3 / b2b:.1f} fps); the device busy "
+                f"{prof['busy_ms']:.3f} ms of {prof['profiled_ms']:.3f} ms a profiled call "
+                f"({100 * prof['busy_share']:.1f}%, {prof['device_ops']:.0f} kernels and copies); peak allocated "
+                f"{peak / 2**30:.3f} GiB; first kernels by device time {line}")
+            out[f"{name}_{h}x{w}"] = {"ms": b2b, "peak_gib": peak / 2**30, **prof}
+            del model, forward
+            torch.cuda.empty_cache()
+
+    root = os.path.join(tmp, "mvsec_3e")
+    for name in TRANSFORMERS:
+        bs = TRANSFORMER_BATCH[name]
+        data = mvsec_train_batch(root, device, f"mvsec_{name}.json", raw=False, batch=bs, frames=MVSEC_3E_FRAMES)
+        for label, mp in (("bf16", True), ("float32", False)):
+            state = mvsec_train_state(device, name, TRANSFORMER_LR)
+            step = mvsec_step(name, mp)
+            run = lambda: step(state, data)
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            b2b = cuda_ms(run, reps=3, warmup=1)
+            prof = profiled_step(run, reps=1, tmp=tmp)
+            say(f"train step {name} 256x256 B={bs} host grids (its config), {label}: {b2b:.3f} ms back to back "
+                f"({bs * 1e3 / b2b:.1f} samples/s); under torch.profiler {prof['profiled_ms']:.3f} ms a step, the "
+                f"device busy {prof['busy_ms']:.3f} ms of it ({100 * prof['busy_share']:.1f}%, "
+                f"{prof['device_ops']:.0f} kernels and copies); peak allocated {peak / 2**30:.3f} GiB")
+            out[f"train_{name}_{label}"] = {"ms": b2b, "peak_gib": peak / 2**30, **prof}
+            del state, step, run
+            torch.cuda.empty_cache()
+    return out
+
+
+PHASES = ("0", "1", "2", "3", "3b", "3c", "3d", "3e", "4")
+# what phase 4 reads from the phases before it: the kernels' errors (2), the
+# main paths' launch counts (3, 3b, 3d, 3e), the two-volume train batch (3b)
+# and the MVSEC paths' launches and fixture (3c)
+PHASE_4_NEEDS = ("2", "3", "3b", "3c", "3d", "3e")
+
+
+def run(device: torch.device, phases=PHASES) -> dict:
+    """The named phases (0 and 1 always), in order; the ``kernels`` line
+    only with phase 4, which needs every phase before it."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     dev_info = phase_device(device)
     with tempfile.TemporaryDirectory(prefix="eemflow_smoke_") as tmp:
         phase_build()
-        errs = phase_parity(device)
-        launches = phase_end_to_end(device, tmp)
-        launches.update(phase_train(device, tmp))
-        two_volume = phase_train_two_volume(device, tmp)
-        mvsec = phase_mvsec(device, tmp)
-        zoo = phase_zoo(device, tmp)
-        launches["voxel_scatter"] += zoo["voxel_scatter"]
-        kernels, train = phase_times(device, tmp, errs, launches, two_volume, mvsec)
-        train["zoo"] = times_zoo(device, tmp)
-    say(f"all phases passed in {time.perf_counter() - t0:.1f} s")
-    say(json.dumps({"train_step": train}))
-    say(json.dumps({"kernels": kernels}))
+        errs = phase_parity(device) if "2" in phases else None
+        launches = {}
+        if "3" in phases:
+            launches.update(phase_end_to_end(device, tmp))
+        if "3b" in phases:
+            launches.update(phase_train(device, tmp))
+            two_volume = phase_train_two_volume(device, tmp)
+        if "3c" in phases:
+            mvsec = phase_mvsec(device, tmp)
+        if "3d" in phases:
+            zoo = phase_zoo(device, tmp)
+        if "3e" in phases:
+            transformers = phase_transformers(device, tmp)
+        if "4" in phases:
+            launches["voxel_scatter"] += zoo["voxel_scatter"] + transformers["voxel_scatter"]
+            launches["local_corr"] += transformers["local_corr"]
+            kernels, train = phase_times(device, tmp, errs, launches, two_volume, mvsec)
+            train["zoo"] = times_zoo(device, tmp)
+            train["transformers"] = times_transformers(device, tmp)
+    say(f"all phases passed in {time.perf_counter() - t0:.1f} s" if phases == PHASES else
+        f"phases {', '.join(phases)} passed in {time.perf_counter() - t0:.1f} s")
+    if "4" in phases:
+        say(json.dumps({"train_step": train}))
+        say(json.dumps({"kernels": kernels}))
     return dev_info
+
+
+def parse_phases(arg: str) -> tuple:
+    """``--phases 0,1,2,3e`` → the named phases with 0 and 1, in run order;
+    a name it does not know, or phase 4 without the phases it reads, exits."""
+    names = {p.strip() for p in arg.split(",") if p.strip()}
+    unknown = sorted(names - set(PHASES))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phase(s) {unknown}; the phases are {', '.join(PHASES)}")
+    names |= {"0", "1"}
+    missing = [p for p in PHASE_4_NEEDS if "4" in names and p not in names]
+    if missing:
+        raise SystemExit(f"chip_smoke: phase 4 reads phases {', '.join(PHASE_4_NEEDS)}; add {', '.join(missing)}")
+    return tuple(p for p in PHASES if p in names)
 
 
 def sweep_k3_bf16(device: torch.device, seeds: int) -> None:
@@ -3656,6 +4070,9 @@ def sweep_k3_bf16(device: torch.device, seeds: int) -> None:
 
 
 def main() -> int:
+    phases = PHASES
+    if sys.argv[1:2] == ["--phases"]:
+        phases = parse_phases(sys.argv[2] if len(sys.argv) > 2 else "")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
         return 1
@@ -3664,7 +4081,7 @@ def main() -> int:
         if sys.argv[1:2] == ["--k3-bf16-seeds"]:
             sweep_k3_bf16(torch.device("cuda"), int(sys.argv[2]))
             return 0
-        dev_info = run(torch.device("cuda"))
+        dev_info = run(torch.device("cuda"), phases)
     except Exception as e:  # the smoke run's boundary: report, exit non-zero
         import traceback
 

@@ -1,5 +1,5 @@
-"""Carry JAX EEMFlow, EEMFlow+, ERAFT, RAFT, GMA, SKFlow and KPAFlow
-variables across to the port.
+"""Carry JAX EEMFlow, EEMFlow+, ERAFT, RAFT, GMA, SKFlow, KPAFlow, GMFlow
+and FlowFormer variables across to the port.
 
 The inverse of ``torch_state_dict_to_flax`` with ``eemflow_alias``
 (``eemflow_tpu/compat/torch_loader.py:57-133``): a nested dict of numpy
@@ -153,3 +153,52 @@ def eemflow_plus_state_dict_from_jax(
         sd[f"{_eemflow_plus_torch_path(path[:-1])}.{leaf_name}"] = torch.from_numpy(np.ascontiguousarray(a))
     sd["index"] = torch.tensor(list(indices), dtype=torch.long)
     return sd
+
+
+def _transformer_torch_path(path) -> str:
+    """A flax module path of the JAX GMFlow or FlowFormer → the port's (the
+    inverse of ``gmflow_alias`` and ``flowformer_alias``): every ``name_N``
+    → ``name.N``, the twins blocks' ``mlp_fc1``/``mlp_fc2`` → ``mlp.fc1``/
+    ``mlp.fc2``, and FlowFormer's ``decoder_layer_cross_attend`` with its
+    standalone ``_k``/``_v`` projections → ``decoder_layer.cross_attend``
+    (``.k``/``.v``)."""
+    out = []
+    for p in path:
+        if p.startswith("decoder_layer_cross_attend"):
+            out += ["decoder_layer", "cross_attend"] + ([p[-1]] if p.endswith(("_k", "_v")) else [])
+        elif p.startswith("mlp_fc"):
+            out += ["mlp", p[len("mlp_"):]]
+        else:
+            out.append(_raft_torch_path((p,)))
+    return ".".join(out)
+
+
+def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX GMFlow or FlowFormer params → the port's ``state_dict``: conv
+    kernels (HWIO, ``TridentConv``'s ``kernel`` too) → OIHW ``weight``,
+    ``Dense`` kernels [in, out] → ``Linear`` ``weight`` [out, in],
+    ``LayerNorm`` ``scale`` → ``weight``, biases, the GMA gate ``gamma`` and
+    FlowFormer's ``latent_tokens`` as they are."""
+    if "params" in params:
+        params = params["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        a = np.array(leaf, np.float32)
+        name = path[-1]
+        if name == "kernel":
+            if a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 2:
+                a = a.T
+            else:
+                raise ValueError(f"{'/'.join(path)}: unexpected kernel shape {a.shape}")
+            name = "weight"
+        elif name == "scale":
+            name = "weight"
+        elif name not in ("bias", "gamma", "latent_tokens"):
+            raise ValueError(f"unexpected param {'/'.join(path)}")
+        sd[f"{_transformer_torch_path(path[:-1])}.{name}".lstrip(".")] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+gmflow_state_dict_from_jax = flowformer_state_dict_from_jax = transformer_state_dict_from_jax

@@ -8,7 +8,8 @@ key carries a ``module.`` prefix; the port's own training checkpoints
 The port's modules use the reference's attribute names and NCHW layout,
 so after unwrapping and stripping, and dropping the keys a family's
 forward never reads (EEMFlow+'s ``EEMFLOW_PLUS_DROP``, GMA's and SKFlow's
-relative position tables ``GMA_DROP``, KPAFlow's ``zero`` buffer), the dict loads
+relative position tables ``GMA_DROP``, FlowFormer's ``FLOWFORMER_DROP``,
+KPAFlow's ``zero`` buffer), the dict loads
 with ``load_state_dict`` strictly.  RAFT takes ERAFT's layout, as the JAX
 ``convert_for_model`` gives every model it does not list.  ``load_model_checkpoint`` is that
 path, shared by the CLIs (``test_hrem``, ``serve``, ``time_eval``).
@@ -16,7 +17,7 @@ path, shared by the CLIs (``test_hrem``, ``serve``, ``time_eval``).
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +52,43 @@ def to_state_dict(arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
 
 
+def digit_merge_alias(mod_path: str) -> Tuple[str, ...]:
+    """A torch module path → the JAX package's flax module path: every
+    ``name.N`` (a ``ModuleList``/``Sequential`` index) merged into
+    ``name_N`` (the JAX ``digit_merge_alias``); ``transformer.layers.0.mlp.0``
+    → ``("transformer", "layers_0", "mlp_0")``."""
+    parts = mod_path.split(".")
+    out = []
+    i = 0
+    while i < len(parts):
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        if nxt is not None and nxt.isdigit():
+            out.append(f"{parts[i]}_{nxt}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return tuple(out)
+
+
+# GMFlow's module tree is the digit-merge shape (the JAX gmflow_alias)
+gmflow_alias = digit_merge_alias
+
+
+def flowformer_alias(mod_path: str) -> Tuple[str, ...]:
+    """FlowFormer's torch paths → the JAX flax paths (the JAX
+    ``flowformer_alias``): the decoder cross-attention's k/v are standalone
+    flax modules, timm's ``mlp.fc1``/``fc2`` flatten to ``mlp_fc1``/``fc2``,
+    the rest is digit-merge.  ``compat.from_jax.transformer_state_dict_from_jax``
+    is its inverse."""
+    p = mod_path
+    for kv in ("k", "v"):
+        if p.endswith(f"decoder_layer.cross_attend.{kv}"):
+            return digit_merge_alias(p.replace(f"decoder_layer.cross_attend.{kv}", f"decoder_layer_cross_attend_{kv}"))
+    p = p.replace("decoder_layer.cross_attend", "decoder_layer_cross_attend").replace("mlp.fc", "mlp_fc")
+    return digit_merge_alias(p)
+
+
 CHECKPOINT_SUFFIXES = (".pth", ".pth.tar", ".pt")
 
 
@@ -72,6 +110,10 @@ def drop_prefixes(model_name: str) -> tuple:
         from eemflow_tpu_torch.models.kpaflow import KPAFLOW_DROP
 
         return KPAFLOW_DROP
+    if model_name == "flowformer":
+        from eemflow_tpu_torch.models.flowformer import FLOWFORMER_DROP
+
+        return FLOWFORMER_DROP
     return ()
 
 

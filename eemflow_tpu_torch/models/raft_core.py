@@ -158,9 +158,13 @@ class SepConvGRU(nn.Module):
 
 
 class BasicMotionEncoder(nn.Module):
-    def __init__(self, corr_levels: int = 4, corr_radius: int = 4):
+    """``cor_planes`` overrides the correlation channels the levels and
+    radius give (FlowFormer's 64 + 81, which flax infers from the input)."""
+
+    def __init__(self, corr_levels: int = 4, corr_radius: int = 4, cor_planes: Optional[int] = None):
         super().__init__()
-        cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
+        if cor_planes is None:
+            cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
         self.convc1 = nn.Conv2d(cor_planes, 256, 1, padding=0)
         self.convc2 = nn.Conv2d(256, 192, 3, padding=1)
         self.convf1 = nn.Conv2d(2, 128, 7, padding=3)

@@ -1,7 +1,8 @@
 """Model registry of the port (counterpart of
 ``eemflow_tpu/models/registry.py:32-100``): ``eemflow``, ``eemflow_plus``,
-``eraft``, ``raft`` and the GMA line of baselines, ``gma``, ``skflow`` and
-``kpaflow``, so far."""
+``eraft``, ``raft``, the GMA line of baselines, ``gma``, ``skflow`` and
+``kpaflow``, and the transformer baselines ``gmflow`` and ``flowformer``,
+so far."""
 
 from __future__ import annotations
 
@@ -10,14 +11,16 @@ import inspect
 from eemflow_tpu_torch.models.eemflow import EEMFlow
 from eemflow_tpu_torch.models.eemflow_plus import EEMFlowPlus
 from eemflow_tpu_torch.models.eraft import ERAFT
+from eemflow_tpu_torch.models.flowformer import FlowFormer
 from eemflow_tpu_torch.models.gma import RAFTGMA
+from eemflow_tpu_torch.models.gmflow import GMFlow
 from eemflow_tpu_torch.models.kpaflow import KPAFlow
 from eemflow_tpu_torch.models.raft import RAFT
 from eemflow_tpu_torch.models.skflow import SKFlow
 
 MODEL_REGISTRY = {
     "eemflow": EEMFlow, "eemflow_plus": EEMFlowPlus, "eraft": ERAFT, "raft": RAFT,
-    "gma": RAFTGMA, "skflow": SKFlow, "kpaflow": KPAFlow,
+    "gma": RAFTGMA, "skflow": SKFlow, "kpaflow": KPAFlow, "gmflow": GMFlow, "flowformer": FlowFormer,
 }
 
 # reference CLI spellings (train_EEMFlow_HREM.py:30-55) → registry names, the

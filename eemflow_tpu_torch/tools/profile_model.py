@@ -27,7 +27,7 @@ Usage:
   python -m eemflow_tpu_torch.tools.profile_model --train -model eemflow_plus --bins 15 -bs 6 [--bf16]
   python -m eemflow_tpu_torch.tools.profile_model --train -model eraft -bs 6 [--bf16]
   python -m eemflow_tpu_torch.tools.profile_model [--train] -model kpaflow --size 256 256 -bs 6 [--bf16]
-      (also gma, skflow)
+      (also gma, skflow, gmflow, flowformer)
 """
 
 from __future__ import annotations

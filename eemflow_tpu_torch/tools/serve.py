@@ -53,7 +53,7 @@ ported yet (``ROADMAP.md``).
 
 Usage:
   python -m eemflow_tpu_torch.tools.serve --data_root <dir> --checkpoint ckpt.pth.tar \\
-      [-model eemflow|eemflow_plus|eraft] [--stream [--chunk K]] [--batch B] \\
+      [-model <any registered model>] [--stream [--chunk K]] [--batch B] \\
       [--host_voxelize] [--fast] [--bf16] [--loops N] [--warmup N] [--out_dir <dir>] \\
       [--profile <dir>] [--device cpu]
 """
@@ -74,7 +74,7 @@ from eemflow_tpu_torch.data.staging import Staging
 from eemflow_tpu_torch.device import resolve_device
 from eemflow_tpu_torch.events.io import write_flo
 from eemflow_tpu_torch.events.voxel import voxelize_batch_nhwc
-from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
+from eemflow_tpu_torch.models.registry import ALIASES, MODEL_REGISTRY, fast_eval_kwargs, get_eval_model
 from eemflow_tpu_torch.native import HostVoxelizer, decode_pack_npz, native_status
 
 PREFETCH_DEPTH = 2  # --host_voxelize: batches its thread runs ahead
@@ -93,7 +93,7 @@ def find_samples(root: str):
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Serve raw event pairs as optical flow (PyTorch port)")
-    p.add_argument("-model", "--model", default="eemflow", choices=["eemflow", "eemflow_plus", "eraft"])
+    p.add_argument("-model", "--model", default="eemflow", choices=sorted(MODEL_REGISTRY) + sorted(ALIASES))
     p.add_argument("--checkpoint", default=None,
                    help=".pth/.pth.tar release or the port's epoch_N.pt; omitted = seeded "
                    "random init (pipeline smoke only)")

@@ -1,6 +1,6 @@
 """Time the eval forward of the port (counterpart of ``tools/time_eval.py``
-for ``-model eemflow``, ``eemflow_plus``, ``eraft``, ``gma``, ``skflow`` and
-``kpaflow``): the user-facing
+for ``-model eemflow``, ``eemflow_plus``, ``eraft``, ``raft``, ``gma``,
+``skflow``, ``kpaflow``, ``gmflow`` and ``flowformer``): the user-facing
 A/B between the standard and the fused modes.
 
 On the card the forward is timed with CUDA events over ``--reps``
@@ -17,7 +17,8 @@ Usage:
       [--fast_pyramid --fast_decoders --fast_sgu [--fast_pyramid_bf16]]
   python -m eemflow_tpu_torch.tools.time_eval -model eraft --size 720 1280 -bs 1 \\
       [--fused_update | --fused_update_bf16] [--corr_fast]
-  python -m eemflow_tpu_torch.tools.time_eval -model gma --size 720 1280 -bs 1   (also skflow, kpaflow)
+  python -m eemflow_tpu_torch.tools.time_eval -model gma --size 720 1280 -bs 1
+      (also raft, skflow, kpaflow, gmflow, flowformer)
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 
 
 # the models the tools time and profile
-MODELS = ["eemflow", "eemflow_plus", "eraft", "gma", "skflow", "kpaflow"]
+MODELS = ["eemflow", "eemflow_plus", "eraft", "raft", "gma", "skflow", "kpaflow", "gmflow", "flowformer"]
 
 
 def add_mode_flags(p: argparse.ArgumentParser) -> None:

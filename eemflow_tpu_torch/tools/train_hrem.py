@@ -1,8 +1,8 @@
 """HREM training CLI of the port (counterpart of ``tools/train_hrem.py``;
 reference ``train_EEMFlow_HREM.py``).
 
-Builds a registry model (EEMFlow, EEMFlow+, ERAFT, RAFT, GMA, SKFlow or
-KPAFlow) with its
+Builds a registry model (EEMFlow, EEMFlow+, ERAFT, RAFT, GMA, SKFlow,
+KPAFlow, GMFlow or FlowFormer) with its
 parameters drawn from ``--seed`` and its input channels from the config's
 ``num_voxel_bins``, loads a JSON config (the flags take the learning rate
 and weight decay, as in the JAX CLI), and trains with the AdamW +
@@ -27,7 +27,8 @@ Usage:
   python -m eemflow_tpu_torch.tools.train_hrem -model eemflow_plus \
       --config configs/hrem_eemflow_plus.json --full_res_flow [...]
   python -m eemflow_tpu_torch.tools.train_hrem -model eraft --full_res_flow [...]
-  python -m eemflow_tpu_torch.tools.train_hrem -model gma --full_res_flow [...]   (also skflow, kpaflow)
+  python -m eemflow_tpu_torch.tools.train_hrem -model gma --full_res_flow [...]
+      (also skflow, kpaflow, gmflow, flowformer)
 """
 
 from __future__ import annotations

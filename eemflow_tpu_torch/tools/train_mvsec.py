@@ -1,7 +1,7 @@
 """MVSEC training CLI of the port (counterpart of ``tools/train_mvsec.py``;
 reference ``train_mvsec.py`` engine), for the two-volume models
 (``eemflow``, ``eemflow_plus``, ``eraft``, ``raft``, ``gma``, ``skflow``,
-``kpaflow``).
+``kpaflow``, ``gmflow``, ``flowformer``).
 
 Builds a registry model with its parameters drawn from ``--seed`` and its
 input channels from the config's ``num_voxel_bins``, loads a JSON config
@@ -23,7 +23,7 @@ Usage:
       --sequence outdoor_day2 --data_root dataset/MVSEC --config configs/mvsec_eraft.json \
       -bs 6 --lr 1e-4 [-se N] [--device_voxelize] [--bf16] [--device cpu]
   python -m eemflow_tpu_torch.tools.train_mvsec -model skflow --config configs/mvsec_skflow.json -bs 6 [...]
-      (also gma with configs/mvsec_gma.json, kpaflow with configs/mvsec_kpaflow.json)
+      (also gma, kpaflow, gmflow -bs 8 and flowformer with configs/mvsec_<model>.json)
 """
 
 from __future__ import annotations

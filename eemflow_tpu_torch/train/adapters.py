@@ -5,7 +5,8 @@ the port trains.
 ``two_volume`` is the reference's ``TrainRaftEvents`` contract
 (``train_mvsec.py:375-386``, the HREM entry path): ``model(ev_old,
 ev_new)``, the γ-weighted sequence loss; the port trains EEMFlow,
-EEMFlow+, ERAFT, RAFT, GMA, SKFlow and KPAFlow through it.  The JAX package's other families
+EEMFlow+, ERAFT, RAFT, GMA, SKFlow, KPAFlow, GMFlow and FlowFormer through
+it.  The JAX package's other families
 (single volume, raw segments, event + image, the UNet, dense-context and
 MIMO-UNet reconstruction losses, GMFlowNet's matching loss) wait for their
 models (``ROADMAP.md`` section 1 item 7); asking for one raises.
@@ -46,7 +47,8 @@ FAMILIES: Dict[str, Family] = {f.name: f for f in [Family()]}
 # model registry name → family, for the models the port trains
 MODEL_FAMILY: Dict[str, str] = {
     "eemflow": "two_volume", "eemflow_plus": "two_volume", "eraft": "two_volume", "raft": "two_volume",
-    "gma": "two_volume", "skflow": "two_volume", "kpaflow": "two_volume",
+    "gma": "two_volume", "skflow": "two_volume", "kpaflow": "two_volume", "gmflow": "two_volume",
+    "flowformer": "two_volume",
 }
 
 

@@ -79,7 +79,7 @@ print("imported", len({modules!r}), "modules")
 def test_port_imports_with_jax_blocked():
     modules = [_module_name(p) for p in _port_files()]
     assert "eemflow_tpu_torch.tools.test_mvsec" in modules and "eemflow_tpu_torch.data.mvsec" in modules
-    assert {f"eemflow_tpu_torch.models.{m}" for m in ("gma", "skflow", "kpaflow")} <= set(modules)
+    assert {f"eemflow_tpu_torch.models.{m}" for m in ("gma", "skflow", "kpaflow", "gmflow", "flowformer")} <= set(modules)
     code = BLOCKER.format(forbidden=BLOCKED_AT_IMPORT, modules=modules)
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
@@ -116,6 +116,19 @@ def test_chip_smoke_fails_without_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("phases,msg", [("0,1,2,9z", "unknown phase(s) ['9z']"), ("2,3,4", "phase 4 reads phases")],
+                         ids=["unknown_phase", "phase_4_alone"])
+def test_chip_smoke_refuses_phases_it_cannot_run(phases, msg):
+    """``--phases`` with a name the script does not know, or phase 4
+    without the phases it reads, exits non-zero naming it, before it looks
+    for a card."""
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py", "--phases", phases], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    assert msg in proc.stderr
 
 
 def test_kernel_wrappers_refuse_other_devices():
