@@ -4,8 +4,8 @@ NVIDIA GPU: the quickest proof that the port builds, is right and runs
 its main paths on the card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 0,1,2,3e    # only the named phases (0 and
-                                               # 1 always; 4 needs 2-3e)
+    python3 chip_smoke.py --phases 0,1,2,3f    # only the named phases (0 and
+                                               # 1 always; 4 needs 2-3f)
     python3 chip_smoke.py --k3-bf16-seeds 20   # only K3's bf16 check on
                                                # EEMFlow+'s chains, 20 draws
 
@@ -30,7 +30,11 @@ where it stopped:
      (the training forward's mixed precision) at B=1 and 6, and on
      MVSEC's 4×4 levels (256×256), and K2's
      backward, one level (``LocalCorr``) and three in one launch
-     (``LocalCorrLevels``, float32 and bf16); K3 fused conv chain + pool at
+     (``LocalCorrLevels``, float32 and bf16); K2 at the PWC nets' cost
+     volumes (K=81 on NHWC views of NCHW features, one level a launch: C=196
+     on 12×20, C=32 on 180×320, C=196 on 4×4, B=2, float32 and bf16) and
+     its backward there (``LocalCorr`` and ``LocalCorrLevels``, C=96 at
+     16×16); K3 fused conv chain + pool at
      the three 720×1280 pyramid levels and the three 256×256 (MVSEC) ones
      for B=1 and 2, in float32 and in bf16, on a ragged NHWC view, and on a small ragged concat chain; K3 on
      EEMFlow+'s own chains at their 720×1280 level shapes, float32 and
@@ -134,6 +138,24 @@ where it stopped:
      launch counts; one float32 train step at 128×128 B=2 on the card
      against a float64 step on the CPU; 20 steps on one batch lowering its
      loss in bf16 and float32; the phase's seconds;
+  3f. the IRR-PWC and FlowNet line (a generator of its own): the goldens of
+     ``irrpwc`` and ``pwcnet_irr_occ_bi`` through ``test_mvsec`` on the JAX
+     package's golden MVSEC sequence (dt1 dense, one sample) on the host
+     path and with ``--device_voxelize`` (K1), with K2's launches (5 and 10
+     a forward), within 0.01 of the golden AEE and the device path within
+     1e-4 of the host path; all 15 names at 256×256 B=1 on seeded weights,
+     the card against the CPU within 1e-4·max(1, largest |flow|), every
+     prediction and occlusion map, with K2's launches; ``test_hrem`` at
+     720×1280 for ``irrpwc``, ``irrpwc_occ``, ``pwcnet_irr_occ_bi``,
+     ``flownet1s`` and ``irr_flownet`` on seeded weights, host path against
+     ``--device_voxelize``; ``train_mvsec`` with the default config
+     (``configs/mvsec_event_flow_dense.json``, B=8) for ``irrpwc``,
+     ``pwcnet_irr_occ_bi``, ``flownet1s`` and ``irr_flownet`` in bf16 and
+     float32 with their launch counts; 20 steps on one batch of sparse grids
+     with finite gradients, lowering the loss (IRR-FlowNet's need not fall:
+     ``PWC_NO_DESCENT``); one float32 train step at 128×128 B=2 on the card
+     against the CPU for ``irrpwc`` and ``irr_flownet``; the phase's
+     seconds;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
@@ -182,12 +204,18 @@ where it stopped:
      and float32 (ms, busy share, peak memory); then GMFlow and FlowFormer:
      each one's 720×1280 and 256×256 B=1 forwards (golden weights) back to
      back, their busy share, first kernels and peak memory, and each one's
-     MVSEC train step at its config's batch in bf16 and float32.
+     MVSEC train step at its config's batch in bf16 and float32; then the
+     720×1280 B=1 forwards of ``irrpwc``, ``pwcnet_irr_occ_bi``,
+     ``flownet1s`` and ``irr_flownet`` (seeded weights) back to back, their
+     busy share, peak memory, first kernels and K2's share of the device
+     time, and the MVSEC B=8 train steps of ``irrpwc`` and ``flownet1s``
+     with the default config in bf16 and float32.
 
 Then one JSON line of the train step's times (``{"train_step": ...}``:
 EEMFlow's under ``bf16`` and ``float32``, EEMFlow+'s and ERAFT's under
 their names with their ``batch``, the zoo's forwards and MVSEC train steps
-under ``zoo``, GMFlow's and FlowFormer's under ``transformers``), one
+under ``zoo``, GMFlow's and FlowFormer's under ``transformers``, the
+IRR-PWC and FlowNet line's under ``pwc``), one
 of every ported kernel (``ms`` is device time; for K1 ``voxel_scatter`` at
 2·10^5 events a frame, with ``voxelize_*`` and ``*_30k`` beside it; for K2
 the three levels of a B=1 forward, float32, ``bf16_*`` on bf16 operands
@@ -198,8 +226,9 @@ of its 9 chains in one fused forward, after an L2 flush; for
 K5 one pair of calls, one iteration, at the 92×160 grid; ``wrapper_ms``
 the time per wrapper call back to back; ``standard_ms`` the device time of
 the standard path that K3, K4 or K5 replaces; ``launches_per_train_step``
-for K1 and K2 (K1's ``launches`` include phases 3d's and 3e's device-voxelize
-runs, K2's the two-scale GMFlow forward of phase 3e),
+for K1 and K2 (K1's ``launches`` include phases 3d's, 3e's and 3f's
+device-voxelize runs, K2's the two-scale GMFlow forward of phase 3e and
+phase 3f's PWC forwards and train steps),
 ``launches_per_train_step_eemflow_plus`` and ``_eraft``
 beside it; ``mvsec_*`` fields: the kernel at MVSEC's shapes and its
 launches on the MVSEC paths of phase 3c), and as the last line
@@ -335,6 +364,12 @@ STARTED = time.perf_counter()
 
 def phase(name: str) -> None:
     say(f"=== phase {name} (at {time.perf_counter() - STARTED:.1f} s)")
+
+
+def stamp(part: str) -> None:
+    """A line that says when a part of phase 4 began, so that a run shows
+    where its clock goes."""
+    say(f"--- 4: {part} (at {time.perf_counter() - STARTED:.1f} s)")
 
 
 def require(cond: bool, what: str) -> None:
@@ -643,6 +678,8 @@ def phase_parity(device: torch.device) -> dict:
     levels_err, k2_bf16_err = phase_parity_k2_levels(device, rng)
     k2_err = max(k2_err, levels_err)
     phase_parity_k2_backward(device, rng)
+    pwc_err, pwc_bf16_err = phase_parity_k2_pwc(device)
+    k2_err, k2_bf16_err = max(k2_err, pwc_err), max(k2_bf16_err, pwc_bf16_err)
     k3_err = phase_parity_k3(device, rng, mvsec_rng)
     plus_err, tc_err = phase_parity_k3_plus(device, rng)
     k4_err = phase_parity_k4(device, rng, mvsec_rng)
@@ -971,6 +1008,62 @@ def phase_parity_k2_backward(device: torch.device, rng) -> None:
             f"grads max|Δ| {max(e for e, _ in errs):.3e} ({worst:.3e} of the tolerance's unit; tolerance {tol:g}"
             f"{'' if dtype == torch.float32 else '·max(1, |plain grad|)'}) against autograd through the twin")
         require(worst <= tol, f"LocalCorrLevels' grads on the card disagree with the twin's ({dtype})")
+
+
+# the PWC nets' cost volumes (phase 3f): md=4, the full 9x9 window (K=81),
+# on NHWC views of NCHW features, one level a launch: HREM's coarsest and
+# finest PWC levels at 720x1280 (C=196 on 12x20, C=32 on 180x320) and
+# MVSEC's coarsest (C=196 on 4x4, the window wider than the grid)
+PWC_K2_CASES = ((2, 196, 12, 20), (2, 32, 180, 320), (2, 196, 4, 4))
+
+
+def phase_parity_k2_pwc(device: torch.device):
+    """K2 at the PWC nets' shapes (``PWC_K2_CASES``), float32 and bf16,
+    through ``local_corr_levels`` with one level on permuted NCHW tensors, as
+    ``models/irrpwc.cost_volume`` calls it, against the plain version; and
+    its backward, through ``LocalCorr`` and ``LocalCorrLevels``, against the
+    plain autograd at C=96, 16x16.  A generator of its own, so that every
+    other case draws what it drew before.  Returns the largest float32 and
+    bf16 differences."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.kernels import local_corr as k2
+
+    rng = np.random.default_rng(19)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for B, C, h, w in PWC_K2_CASES:
+        xa, ya = (torch.from_numpy(rng.standard_normal((B, C, h, w)).astype(np.float32)).to(device) for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = (t.to(dtype).permute(0, 2, 3, 1) for t in (xa, ya))
+            before = launch_counts["local_corr"]
+            with torch.inference_mode():
+                got = k2.local_corr_levels([(x, y)], 4)[0]
+            ref = k2.plain(x, y, 4)
+            torch.cuda.synchronize()
+            err, scale = rel_err(got.float(), ref.float())
+            worst[dtype] = max(worst[dtype], err)
+            tol = K2_TOL if dtype == torch.float32 else K2_BF16_TOL * scale
+            say(f"K2 PWC cost volume {str(dtype)[6:]} B={B} C={C} {h}x{w} K=81 (NHWC views of NCHW features): max|Δ| "
+                f"{err:.3e} (tolerance {tol:.3e}); one launch {launch_counts['local_corr'] == before + 1}")
+            require(tuple(got.shape) == (B, h, w, 81) and got.dtype == dtype and err <= tol
+                    and launch_counts["local_corr"] == before + 1,
+                    f"K2 disagrees with its twin at the PWC shape {(B, C, h, w)} ({dtype})")
+    shape = (2, 96, 16, 16)
+    xa, ya = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device) for _ in range(2))
+    g = None
+    for label, call in (("LocalCorr", lambda a, b: k2.local_corr(a, b, 4)),
+                        ("LocalCorrLevels", lambda a, b: k2.local_corr_levels([(a, b)], 4)[0])):
+        x, y = (t.clone().permute(0, 2, 3, 1).detach().requires_grad_() for t in (xa, ya))
+        out = call(x, y)
+        g = torch.randn_like(out) if g is None else g
+        gx, gy = torch.autograd.grad(out, [x, y], g)
+        x2, y2 = (t.clone().permute(0, 2, 3, 1).detach().requires_grad_() for t in (xa, ya))
+        px, py = torch.autograd.grad(k2.plain(x2, y2, 4), [x2, y2], g)
+        torch.cuda.synchronize()
+        err = max(float((gx - px).abs().max()), float((gy - py).abs().max()))
+        say(f"K2 {label} backward, the PWC cost volume B=2 C=96 16x16 K=81: grads max|Δ| {err:.3e} against "
+            f"autograd through the twin (tolerance {K2_GRAD_TOL:g})")
+        require(err <= K2_GRAD_TOL, f"K2's {label} grads at the PWC shape disagree with the twin's")
+    return worst[torch.float32], worst[torch.bfloat16]
 
 
 def k5_block(rng, device):
@@ -1715,7 +1808,10 @@ def step_on_cpu_and_card(device: torch.device, make_state, batch: dict, bins: in
         opt_step = state.opt.step
 
         def step_recording_grads(state=state, grads=grads, opt_step=opt_step):
-            grads.update({n: p.grad.detach().cpu().clone() for n, p in state.model.named_parameters()})
+            # a parameter the loss does not reach has no .grad (the optimizer
+            # gives it zeros)
+            grads.update({n: torch.zeros(p.shape) if p.grad is None else p.grad.detach().cpu().clone()
+                          for n, p in state.model.named_parameters()})
             return opt_step()
 
         state.opt.step = step_recording_grads
@@ -1958,18 +2054,27 @@ def phase_times(device: torch.device, tmp: str, errs: dict, launches: dict, two_
     model = get_eval_model("eemflow")
     model.load_state_dict(sd)
     model.to(device)
+    stamp("K2")
     k2_row = times_k2(device, model, errs, launches)
     x1, x2 = (torch.randn(1, H, W, BINS, device=device) for _ in range(2))
+    stamp("K3 and K4")
     k3_row, k4_row = times_k3_k4(device, model, x1, x2, errs, launches)
+    stamp("EEMFlow forwards and a sample")
     times_forwards(device, model, sd, x1, x2)
     times_sample(device, model, tmp)
 
+    stamp("K5 and ERAFT")
     k5_row = times_k5(device, errs, launches)
     times_eraft(device)
+    stamp("--fast candidates")
     times_fast_candidates(device, sd, x1, x2)
+    stamp("EEMFlow+")
     plus_row = times_plus(device, tmp, errs, launches)
+    stamp("serve")
     times_serve(device, tmp)
+    stamp("train steps")
     train = times_train(device, tmp, two_volume)
+    stamp("MVSEC")
     mvsec_rows = times_mvsec(device, tmp, mvsec)
     # a two-volume train step's launches (phase 3b's counts)
     for row, key in ((k1_row, "voxel_scatter_per_train_step"), (k2_row, "local_corr_per_train_step")):
@@ -3436,10 +3541,7 @@ def phase_zoo(device: torch.device, tmp: str) -> dict:
     rng = np.random.default_rng(15)
     fixtures = os.path.join(REPO, "tests", "fixtures")
     hrem_root = hrem_split(tmp)
-    # the MVSEC sequence of the JAX package's golden checks
-    # (tests/test_golden_acceptance.make_mvsec_fixture), draw for draw
-    golden_mvsec = make_mvsec_fixture(tmp, n_events=20000, sequences=(("indoor_flying1", 2, 18),), t0=0.0,
-                                      images=True, name="mvsec_golden")
+    golden_mvsec = golden_mvsec_split(tmp)
     k1_calls = 0
     others = ("local_corr", "fused_convs_pool", "coarse_head", "update_block")
     for name in ZOO:
@@ -3724,6 +3826,27 @@ def mvsec_split(tmp: str) -> str:
     return root if os.path.isdir(root) else make_mvsec_fixture(tmp)
 
 
+def golden_mvsec_split(tmp: str) -> str:
+    """The JAX package's golden MVSEC sequence
+    (``tests/test_golden_acceptance.make_mvsec_fixture``, draw for draw),
+    made by the first phase that reads it."""
+    root = os.path.join(tmp, "mvsec_golden")
+    if os.path.isdir(root):
+        return root
+    return make_mvsec_fixture(tmp, n_events=20000, sequences=(("indoor_flying1", 2, 18),), t0=0.0, images=True,
+                              name="mvsec_golden")
+
+
+def mvsec_3e_split(tmp: str) -> str:
+    """An eight-sample MVSEC train sequence (seed 57; GMFlow's and the
+    default config's B=8), made by the first phase that reads it."""
+    root = os.path.join(tmp, "mvsec_3e")
+    if os.path.isdir(root):
+        return root
+    return make_mvsec_fixture(tmp, seed=57, sequences=((MVSEC_TRAIN_SEQUENCE, MVSEC_3E_FRAMES[0],
+                                                       MVSEC_3E_FRAMES[1] + 2),), name="mvsec_3e")
+
+
 def phase_transformers(device: torch.device, tmp: str) -> dict:
     """GMFlow and FlowFormer through the port's CLIs: the golden checkpoints
     through ``test_hrem`` at 720x1280 on the host path and with
@@ -3795,8 +3918,7 @@ def phase_transformers(device: torch.device, tmp: str) -> dict:
         del model
 
     # train_mvsec with each model's own config at its batch
-    mvsec = make_mvsec_fixture(tmp, seed=57, sequences=((MVSEC_TRAIN_SEQUENCE, MVSEC_3E_FRAMES[0],
-                                                         MVSEC_3E_FRAMES[1] + 2),), name="mvsec_3e")
+    mvsec = mvsec_3e_split(tmp)
     with mvsec_train_frames(MVSEC_3E_FRAMES):
         for name in TRANSFORMERS:
             config, bs = f"mvsec_{name}.json", TRANSFORMER_BATCH[name]
@@ -3988,11 +4110,392 @@ def times_transformers(device, tmp: str) -> dict:
     return out
 
 
-PHASES = ("0", "1", "2", "3", "3b", "3c", "3d", "3e", "4")
+# The IRR-PWC and FlowNet line (phase 3f): the two golden checkpoints on the
+# JAX package's golden MVSEC sequence (seed 55, dt1 dense, one sample), each
+# on the host path and with --device_voxelize; all 15 names at 256x256 B=1
+# on seeded weights, the card against the CPU; test_hrem at 720x1280 for
+# five of them on seeded weights; train_mvsec with the JAX CLI's default
+# config (configs/mvsec_event_flow_dense.json: B=8, bf16) on phase 3e's
+# eight-sample MVSEC train sequence
+PWC_LINE = ("irrpwc", "irrpwc_occ", "pwcnet", "pwcnet_bi", "pwcnet_occ", "pwcnet_occ_bi", "pwcnet_irr_bi",
+            "pwcnet_irr_occ", "pwcnet_irr_occ_bi", "flownet1s", "flownet1s_irr", "flownet1s_irr_bi",
+            "flownet1s_irr_occ", "flownet1s_irr_occ_bi", "irr_flownet")
+# K2 launches a forward: one a direction and level of the 5 PWC levels; none
+# in the FlowNet nets, which have no correlation
+PWC_K2 = {name: 0 if "flownet" in name else 10 if name == "irrpwc_occ" or name.endswith("_bi") else 5
+          for name in PWC_LINE}
+PWC_GOLDENS = {"irrpwc": ("irrpwc_mvsec_golden.pth.tar", "mvsec_golden_irrpwc.json"),
+               "pwcnet_irr_occ_bi": ("pwcnet_irr_occ_bi_mvsec_golden.pth.tar", "mvsec_golden_pwcnet_irr_occ_bi.json")}
+PWC_HREM = ("irrpwc", "irrpwc_occ", "pwcnet_irr_occ_bi", "flownet1s", "irr_flownet")
+PWC_TRAIN = ("irrpwc", "pwcnet_irr_occ_bi", "flownet1s", "irr_flownet")
+PWC_STEP = ("irrpwc", "irr_flownet")
+PWC_CONFIG = "mvsec_event_flow_dense.json"  # the MVSEC training CLI's default
+PWC_BATCH = 8  # its batch_size
+PWC_PATH_TOL = 1e-4
+# the card against the CPU, an occlusion map relative to max(1, its largest
+# |value|): IRR-PWC-Occ's and IRR-FlowNet's occlusion upsamplers read the
+# input warped at full resolution by the flow, so the flow's float32
+# difference (~8e-4 px of flows up to 130 px) moves the warped white-noise
+# grid by ~1e-3: IRR-FlowNet's maps 5.9e-5 to 1.2e-4 of it over two runs,
+# IRR-PWC-Occ's 6.2e-5, the others' at most 1.4e-5 (H100 80GB HBM3, 700 W)
+PWC_OCC_TOL = 1e-3
+PWC_LR = 1e-4  # the 20-step loss check
+# IRR-FlowNet's loss reaches its FlowNet core only through the warps'
+# coordinates: its refinement takes the core's flow detached, as JAX stops
+# its gradient, so its gradient leaves out the path through the flow it
+# refines and its steps need not lower its loss.  JAX's own 20 steps (CPU,
+# 64x96 B=2, dense grids, lr 2e-4 over a 100-step OneCycle) go 35.63 →
+# 18.85 → 70.86 at one draw and 32.45 → 21.73 at another, the port's first
+# steps following them; the port's (the same schedule, B=8, the MVSEC
+# batch, on the CPU) 21.00 → 15.96 and 8.10 → 14.62 at two draws; on an
+# H100 80GB HBM3 (700 W) at that schedule float32 31.25 → 24.82 (step 15)
+# → 31.99, and at this lr 31.25 → 30.70, → 31.42 and → 31.05 in three runs.
+# Its 20 steps are held to finite gradients, losses and parameters only;
+# the others' loss must fall.
+PWC_NO_DESCENT = ("irr_flownet",)
+
+
+def pwc_seeded(model, rng):
+    """Draw the model's conv and transposed-conv weights from ``rng``,
+    normal with variance 2/fan_in (He, as flax initialises the JAX model;
+    a stride-2 transposed conv's fan-in a quarter of Cin·kh·kw), biases
+    N(0, 0.01²).  Returns the model."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                fan_in = m.weight[0].numel() if isinstance(m, torch.nn.Conv2d) else m.weight.shape[0] * 4
+                m.weight.copy_(torch.from_numpy(rng.standard_normal(m.weight.shape) * np.sqrt(2.0 / fan_in)))
+                if m.bias is not None:
+                    m.bias.copy_(torch.from_numpy(rng.standard_normal(m.bias.shape) * 0.01))
+    return model
+
+
+def pwc_outputs(model, ev1, ev2):
+    """(predictions stacked, occlusion maps) of one forward, on the CPU."""
+    maps, preds = model(ev1, ev2)
+    occ = [m.float().cpu() for m in maps if m is not None and m.shape[-1] == 1]
+    return torch.stack([p.float().cpu() for p in preds]), occ
+
+
+def phase_pwc(device: torch.device, tmp: str) -> dict:
+    """The IRR-PWC and FlowNet line through the port's CLIs: the golden
+    checkpoints through ``test_mvsec`` on the host path and with
+    ``--device_voxelize`` (K1), with K2's launches; the 15 names at 256x256
+    B=1 on seeded weights, the card against the CPU, every prediction and
+    occlusion map; ``test_hrem`` at 720x1280 for five of them on seeded
+    weights, host path against ``--device_voxelize``; ``train_mvsec`` with
+    the default config at B=8 for four of them in bf16 (host grids) and
+    float32 (``--device_voxelize``), each run's launch counts set to 0 just
+    before it and read just after; on sparse event grids, finite gradients
+    and 20 steps on one batch lowering its loss in bf16 and float32; one
+    float32 train step at 128x128 B=2 on the card against the CPU for
+    ``irrpwc`` and ``irr_flownet``.  Draws from a generator of its own.
+    Returns the K1 calls and K2 launches of its runs."""
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.tools.test_hrem import main as test_hrem
+    from eemflow_tpu_torch.tools.test_mvsec import main as test_mvsec
+    from eemflow_tpu_torch.tools.train_mvsec import main as train_mvsec
+
+    phase("3f IRR-PWC and FlowNet: goldens (MVSEC dt1 dense), the 15 names card vs CPU, test_hrem at 720x1280, "
+          "train_mvsec with the default config")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    calls = {"voxel_scatter": 0, "local_corr": 0}
+    others = ("fused_convs_pool", "coarse_head", "update_block")
+
+    def counted(label, k1, k2):
+        counts = dict(launch_counts)
+        require(counts["voxel_scatter"] == k1 and counts["local_corr"] == k2 and all(counts[k] == 0 for k in others),
+                f"{label}: launches {counts}, not K1 {k1}, K2 {k2} and no other kernel")
+        calls["voxel_scatter"] += counts["voxel_scatter"]
+        calls["local_corr"] += counts["local_corr"]
+        return counts
+
+    golden_root = golden_mvsec_split(tmp)
+    for name, (ckpt, golden_json) in PWC_GOLDENS.items():
+        with open(os.path.join(fixtures, golden_json)) as f:
+            golden = json.load(f)
+        aee = {}
+        for label, extra, k1 in (("host voxelize", [], 0), ("device voxelize", ["--device_voxelize"], 2)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = test_mvsec(["-model", name, "-int", golden["dt"], "--checkpoint", os.path.join(fixtures, ckpt),
+                              "--max_samples", str(golden["max_samples"]), "--device", str(device), "--sequence",
+                              "indoor_flying1", "--eval_type", "dense", "--data_root", golden_root, "--frames", "3",
+                              "9", "--stride", "1", "--save_dir", os.path.join(tmp, "out_pwc"), *extra])
+            aee[label] = res["AEE"]
+            counts = counted(f"{name} golden {label}", k1, PWC_K2[name])
+            say(f"{name} golden (MVSEC dt1 dense), {label}: AEE {aee[label]:.7f} in {time.perf_counter() - t0:.1f} "
+                f"s; launches {counts}")
+        host, dev = aee["host voxelize"], aee["device voxelize"]
+        say(f"{name}: golden AEE {golden['aee']:.7f}, host path |Δ| {abs(host - golden['aee']):.3e} (tolerance "
+            f"{GOLDEN_TOL:g}); device voxelize vs host path |Δ| {abs(dev - host):.3e} (tolerance {PWC_PATH_TOL:g})")
+        require(abs(host - golden["aee"]) < GOLDEN_TOL and abs(dev - host) <= PWC_PATH_TOL,
+                f"{name}: the golden AEE drifted or the device path differs from the host path")
+
+    # the 15 names at 256x256 B=1, seeded weights, the card against the CPU
+    for name in PWC_LINE:
+        model = pwc_seeded(get_eval_model(name), rng)
+        ev1, ev2 = (torch.from_numpy(rng.standard_normal((1, MVSEC_CROP, MVSEC_CROP, BINS)).astype(np.float32))
+                    for _ in range(2))
+        with torch.inference_mode():
+            ref, ref_occ = pwc_outputs(model, ev1, ev2)
+            model.to(device)
+            reset_launch_counts()
+            got, got_occ = pwc_outputs(model, ev1.to(device), ev2.to(device))
+            counted(f"{name} forward", 0, PWC_K2[name])
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        occ_err = [float((g - r).abs().max()) / max(1.0, float(r.abs().max())) for g, r in zip(got_occ, ref_occ)]
+        say(f"{name} forward 256x256 B=1 ({len(ref)} predictions, {len(ref_occ)} occlusion maps), card vs CPU: max|Δ| "
+            f"{err:.3e} (tolerance {FORWARD_TOL:g}·{scale:.3f}); occlusion maps {[f'{e:.2e}' for e in occ_err]} of "
+            f"max(1, |map|) (tolerance {PWC_OCC_TOL:g}); K2 launches {PWC_K2[name]}")
+        require(bool(torch.isfinite(got).all()) and err <= FORWARD_TOL * scale and len(got_occ) == len(ref_occ)
+                and all(e <= PWC_OCC_TOL for e in occ_err), f"{name}: the forward on the card disagrees with the CPU")
+        del model
+
+    # test_hrem at 720x1280, seeded weights: host path against device voxelize
+    hrem_root = hrem_split(tmp)
+    for name in PWC_HREM:
+        ckpt = os.path.join(tmp, f"{name}_seeded.pth.tar")
+        torch.save({"state_dict": pwc_seeded(get_eval_model(name), rng).state_dict()}, ckpt)
+        aee = {}
+        for label, extra, k1 in (("host voxelize", [], 0), ("device voxelize", ["--device_voxelize"], 2)):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = test_hrem(["-model", name, "-int", "dt1", "--checkpoint", ckpt, "--max_samples", "1", "--device",
+                             str(device), "--data_root", hrem_root, "--save_dir", os.path.join(tmp, "out_pwc"), *extra])
+            aee[label] = res["mean"]["AEE"]
+            counts = counted(f"{name} test_hrem {label}", k1, PWC_K2[name])
+            say(f"{name} test_hrem 720x1280 (seeded weights), {label}: AEE {aee[label]:.7f} in "
+                f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+        host, dev = aee["host voxelize"], aee["device voxelize"]
+        require(np.isfinite(host) and abs(dev - host) <= PWC_PATH_TOL * max(1.0, host),
+                f"{name}: test_hrem's device path differs from its host path ({dev} vs {host})")
+        os.remove(ckpt)
+
+    # train_mvsec with the default config at B=8, then 20 steps on one batch
+    mvsec = mvsec_3e_split(tmp)
+    with mvsec_train_frames(MVSEC_3E_FRAMES):
+        for name in PWC_TRAIN:
+            for label, mp, extra, k1_step in ZOO_TRAIN_PATHS:
+                save = os.path.join(tmp, f"pwc_train_{name}_{int(mp)}")
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                state = train_mvsec([
+                    "-model", name, "--config", train_config(tmp, mp, PWC_CONFIG), "--data_root", mvsec,
+                    "--sequence", MVSEC_TRAIN_SEQUENCE, "-bs", str(PWC_BATCH), "--train_iters",
+                    str(MVSEC_TRAIN_STEPS), "--val_iters", str(MVSEC_TRAIN_STEPS // 2), "--save_dir", save,
+                    "--device", str(device), *extra,
+                ])
+                counts = counted(f"train_mvsec {name} {label}", k1_step * MVSEC_TRAIN_STEPS,
+                                 PWC_K2[name] * MVSEC_TRAIN_STEPS)
+                run = os.path.join(save, os.listdir(save)[0])
+                recs = [r for r in read_jsonl(os.path.join(run, "metrics.jsonl")) if r["kind"] == "epoch"]
+                say(f"train_mvsec {name} {label} (the default config), B={PWC_BATCH}: {MVSEC_TRAIN_STEPS} steps in "
+                    f"{time.perf_counter() - t0:.1f} s; epochs {[(r['epoch'], r['n_steps'], r['mean_loss']) for r in recs]}"
+                    f"; launches {counts}")
+                require(state.step == MVSEC_TRAIN_STEPS and len(recs) == 2
+                        and all(np.isfinite(r["mean_loss"]) for r in recs)
+                        and all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+                        f"{name} {label}: the run did not take its steps with finite losses")
+                del state
+            pwc_steps_lower_the_loss(device, mvsec, name, rng)
+            torch.cuda.empty_cache()
+    for name in PWC_STEP:
+        pwc_step_card_vs_cpu(device, name, rng)
+    say(f"phase 3f took {time.perf_counter() - t_phase:.1f} s; its K1 calls and K2 launches {calls}")
+    return calls
+
+
+def pwc_steps_lower_the_loss(device, root: str, name: str, rng) -> None:
+    """20 steps on one fixed MVSEC batch of host grids (B=8, the default
+    config's augmentation) from seeded weights (``pwc_seeded``: He, as
+    flax initialises the JAX model), in bf16 and float32: every gradient of
+    the first step finite (the grids are zero at most pixels, where
+    ‖diff‖₂'s gradient is 0 in the port), every loss and parameter finite,
+    and the loss lowered but for ``PWC_NO_DESCENT``'s."""
+    from eemflow_tpu_torch.models.registry import get_model
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state
+
+    data = mvsec_train_batch(root, device, PWC_CONFIG, raw=False, batch=PWC_BATCH, frames=MVSEC_3E_FRAMES)
+    zero = float((data["event_volume_old"] == 0).all(dim=-1).float().mean())
+    params = pwc_seeded(get_model(name), rng).state_dict()
+    for label, mp in (("bf16", True), ("float32", False)):
+        state = create_train_state(get_model(name), 0, make_optimizer(PWC_LR, num_steps=1000), params=params,
+                                   device=device)
+        step = mvsec_step(name, mp)
+        finite = []
+        opt_step = state.opt.step
+
+        def checking_step(state=state, opt_step=opt_step, finite=finite):
+            if not finite:
+                finite.append(all(bool(torch.isfinite(p.grad).all()) for p in state.model.parameters()
+                                  if p.grad is not None))
+            return opt_step()
+
+        state.opt.step = checking_step
+        losses = [float(step(state, data)[1]["loss"]) for _ in range(20)]
+        say(f"20 {label} MVSEC {name} steps (lr {PWC_LR:g}) on one 256x256 B={PWC_BATCH} batch (grids zero at "
+            f"{100 * zero:.1f}% of their pixels): first step's gradients finite {finite[0]}; loss {losses[0]:.6f} → "
+            f"{losses[-1]:.6f} (every 5th: {[round(x, 6) for x in losses[::5]]})")
+        lowered = losses[-1] < losses[0] or name in PWC_NO_DESCENT
+        require(finite[0] and all(np.isfinite(losses)) and lowered
+                and all(bool(torch.isfinite(p).all()) for p in state.model.parameters()),
+                f"20 {label} MVSEC {name} steps on one batch did not keep finite gradients and lower its loss")
+
+
+def pwc_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
+    """One float32 train step of ``name`` (forward, loss, backward, clip,
+    AdamW) from the same seeded parameters at 128x128, B=2, on the card and
+    on the CPU (PyTorch's own CPU convolutions: oneDNN's transposed-conv
+    backward is less exact, ``tests/test_torch_train_irrpwc.py``), both from
+    the grids the card's K1 makes of one raw-event batch with flips: the
+    loss and every gradient in units of the model's largest |g| (phase 3b's
+    ERAFT rule), and the whole gradient.  The same grids on both sides,
+    because IRR-FlowNet's decoders take their whole gradient through the
+    bilinear warps' coordinate derivatives (its refinement takes their flow
+    detached), which jump where a sample crosses a pixel: K1's atomics move
+    a cell by ~1e-7 from run to run, and with each side voxelizing its own
+    the same draws put the worst leaf 2.1e-4 and 1.6e-3 of the largest |g|
+    from the CPU's in two runs on an H100 80GB HBM3."""
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.registry import get_model
+    from eemflow_tpu_torch.train.optim import make_optimizer
+    from eemflow_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    h, w, B, N = 128, 128, 2, 4096
+    params = pwc_seeded(get_model(name), rng).state_dict()
+    ev, nv = k1_batch(rng, (N, N - 100, N - 7, N), N=N, h=h, w=w)
+    raw = {
+        "events_old": ev[:B], "events_new": ev[B:], "n_old": nv[:B], "n_new": nv[B:],
+        "flip_h": np.array([True, False]), "flip_v": np.array([False, True]),
+        "flow": (rng.standard_normal((B, h, w, 2)) * 2).astype(np.float32),
+        "valid": np.ones((B, h, w), np.float32),
+    }
+    before = dict(launch_counts)
+    with torch.no_grad():
+        grids = make_device_preprocess(BINS, h, w)({k: torch.from_numpy(v).to(device) for k, v in raw.items()})
+    runs = {}
+    for key, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        state = create_train_state(get_model(name), 0, make_optimizer(1e-4, num_steps=100), params=params, device=dev)
+        grads = {}
+        opt_step = state.opt.step
+
+        def step_recording_grads(state=state, grads=grads, opt_step=opt_step):
+            # a parameter the loss does not reach has no .grad (the optimizer
+            # gives it zeros)
+            grads.update({n: torch.zeros(p.shape) if p.grad is None else p.grad.detach().cpu().clone()
+                          for n, p in state.model.named_parameters()})
+            return opt_step()
+
+        state.opt.step = step_recording_grads
+        with torch.backends.mkldnn.flags(enabled=False):
+            _, metrics = make_train_step()(state, {k: v.to(dev) for k, v in grids.items()})
+        runs[key] = (float(metrics["loss"]), grads)
+    launches = (launch_counts["voxel_scatter"] - before["voxel_scatter"],
+                launch_counts["local_corr"] - before["local_corr"])
+    (loss_cpu, g_cpu), (loss_gpu, g_gpu) = runs["cpu"], runs["card"]
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst, leaf = max((float((g_gpu[n] - g).abs().max()) / top, n) for n, g in g_cpu.items())
+    whole = float(torch.cat([(g_gpu[n] - g).flatten() for n, g in g_cpu.items()]).norm()
+                  / torch.cat([g.flatten() for g in g_cpu.values()]).norm())
+    say(f"{name}: one float32 train step at {h}x{w} B={B} from the card's grids (K1 calls, K2 launches {launches}), "
+        f"card vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (|Δ| relative {abs(loss_gpu - loss_cpu) / loss_cpu:.3e}, "
+        f"tolerance {TRAIN_LOSS_RTOL:g}); grads: the worst parameter's max|Δ| is {worst:.3e} of the model's largest "
+        f"|g| ({leaf}; tolerance {TRAIN_GRAD_TOL:g}); the whole gradient {whole:.3e} relative L2")
+    require(launches == (2, PWC_K2[name]), f"{name}: the card's step did not run K1 twice and K2 {PWC_K2[name]} times")
+    require(np.isfinite(loss_gpu) and abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
+            and worst <= TRAIN_GRAD_TOL and whole <= TRAIN_GRAD_TOL,
+            f"{name}: the train step on the card disagrees with the CPU")
+
+
+# phase 4: the line's 720x1280 forwards timed, and its MVSEC train steps
+PWC_TIMED = ("irrpwc", "pwcnet_irr_occ_bi", "flownet1s", "irr_flownet")
+PWC_TIMED_TRAIN = ("irrpwc", "flownet1s")
+
+
+def times_pwc(device, tmp: str) -> dict:
+    """Phase 4 for the IRR-PWC and FlowNet line: the 720x1280 B=1 eval
+    forward of four of its nets (seeded weights) back to back (CUDA events),
+    the device's busy share of one profiled run, the peak memory, the first
+    kernels by device time and K2's share of the device time; the MVSEC
+    train step at the default config's B=8 (host grids) of ``irrpwc`` and
+    ``flownet1s`` in bf16 and float32: ms back to back, busy share, device
+    ops, peak memory."""
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    rng = np.random.default_rng(20)
+    out = {}
+    for name in PWC_TIMED:
+        model = pwc_seeded(get_eval_model(name), rng).to(device)
+        x1, x2 = (torch.randn(1, H, W, BINS, device=device) for _ in range(2))
+
+        def forward(m=model):
+            with torch.inference_mode():
+                return m(x1, x2)[1][-1]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        flow = forward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        require(tuple(flow.shape) == (1, H, W, 2) and bool(torch.isfinite(flow).all()),
+                f"the 720x1280 {name} forward is not finite or has the wrong shape")
+        b2b = cuda_ms(forward, reps=5, warmup=1)
+        prof = profiled_step(forward, reps=1, tmp=tmp)
+        kernels = device_kernels(forward)
+        summed = sum(ms for _, ms in kernels)
+        k2_ms = sum(ms for k, ms in kernels if "local_corr" in k)
+        by_name = {}
+        for k, ms in kernels:
+            t, c = by_name.get(k, (0.0, 0))
+            by_name[k] = (t + ms, c + 1)
+        line = "; ".join(f"{k[:80]} {t:.3f} ms ({c})" for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5])
+        say(f"{name} forward 720x1280 B=1 (seeded weights): {b2b:.3f} ms back to back ({1e3 / b2b:.1f} fps); the device "
+            f"busy {prof['busy_ms']:.3f} ms of {prof['profiled_ms']:.3f} ms a profiled call "
+            f"({100 * prof['busy_share']:.1f}%, {prof['device_ops']:.0f} kernels and copies); peak allocated "
+            f"{peak / 2**30:.3f} GiB; K2 {k2_ms:.3f} ms of {summed:.3f} ms summed device time "
+            f"({100 * k2_ms / summed:.1f}%, {sum('local_corr' in k for k, _ in kernels)} launches); first kernels "
+            f"by device time: {line}")
+        out[f"{name}_720x1280"] = {"ms": b2b, "peak_gib": peak / 2**30, "k2_share": k2_ms / summed, **prof}
+        del model, forward
+        torch.cuda.empty_cache()
+
+    root = mvsec_3e_split(tmp)
+    data = mvsec_train_batch(root, device, PWC_CONFIG, raw=False, batch=PWC_BATCH, frames=MVSEC_3E_FRAMES)
+    for name in PWC_TIMED_TRAIN:
+        for label, mp in (("bf16", True), ("float32", False)):
+            state = mvsec_train_state(device, name, PWC_LR)
+            step = mvsec_step(name, mp)
+            run = lambda: step(state, data)
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            b2b = cuda_ms(run, reps=3, warmup=1)
+            prof = profiled_step(run, reps=1, tmp=tmp)
+            say(f"train step {name} 256x256 B={PWC_BATCH} host grids (the default config), {label}: {b2b:.3f} ms back "
+                f"to back ({PWC_BATCH * 1e3 / b2b:.1f} samples/s); under torch.profiler {prof['profiled_ms']:.3f} ms a "
+                f"step, the device busy {prof['busy_ms']:.3f} ms of it ({100 * prof['busy_share']:.1f}%, "
+                f"{prof['device_ops']:.0f} kernels and copies); peak allocated {peak / 2**30:.3f} GiB")
+            out[f"train_{name}_{label}"] = {"ms": b2b, "peak_gib": peak / 2**30, **prof}
+            del state, step, run
+            torch.cuda.empty_cache()
+    return out
+
+
+PHASES = ("0", "1", "2", "3", "3b", "3c", "3d", "3e", "3f", "4")
 # what phase 4 reads from the phases before it: the kernels' errors (2), the
-# main paths' launch counts (3, 3b, 3d, 3e), the two-volume train batch (3b)
-# and the MVSEC paths' launches and fixture (3c)
-PHASE_4_NEEDS = ("2", "3", "3b", "3c", "3d", "3e")
+# main paths' launch counts (3, 3b, 3d, 3e, 3f), the two-volume train batch
+# (3b) and the MVSEC paths' launches and fixture (3c)
+PHASE_4_NEEDS = ("2", "3", "3b", "3c", "3d", "3e", "3f")
 
 
 def run(device: torch.device, phases=PHASES) -> dict:
@@ -4017,12 +4520,18 @@ def run(device: torch.device, phases=PHASES) -> dict:
             zoo = phase_zoo(device, tmp)
         if "3e" in phases:
             transformers = phase_transformers(device, tmp)
+        if "3f" in phases:
+            pwc = phase_pwc(device, tmp)
         if "4" in phases:
-            launches["voxel_scatter"] += zoo["voxel_scatter"] + transformers["voxel_scatter"]
-            launches["local_corr"] += transformers["local_corr"]
+            launches["voxel_scatter"] += zoo["voxel_scatter"] + transformers["voxel_scatter"] + pwc["voxel_scatter"]
+            launches["local_corr"] += transformers["local_corr"] + pwc["local_corr"]
             kernels, train = phase_times(device, tmp, errs, launches, two_volume, mvsec)
+            stamp("the zoo")
             train["zoo"] = times_zoo(device, tmp)
+            stamp("the transformers")
             train["transformers"] = times_transformers(device, tmp)
+            stamp("the IRR-PWC and FlowNet line")
+            train["pwc"] = times_pwc(device, tmp)
     say(f"all phases passed in {time.perf_counter() - t0:.1f} s" if phases == PHASES else
         f"phases {', '.join(phases)} passed in {time.perf_counter() - t0:.1f} s")
     if "4" in phases:

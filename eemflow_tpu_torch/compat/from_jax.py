@@ -1,5 +1,6 @@
-"""Carry JAX EEMFlow, EEMFlow+, ERAFT, RAFT, GMA, SKFlow, KPAFlow, GMFlow
-and FlowFormer variables across to the port.
+"""Carry JAX EEMFlow, EEMFlow+, ERAFT, RAFT, GMA, SKFlow, KPAFlow, GMFlow,
+FlowFormer, IRR-PWC/PWC-Net and FlowNet1S/IRR-FlowNet variables across to
+the port.
 
 The inverse of ``torch_state_dict_to_flax`` with ``eemflow_alias``
 (``eemflow_tpu/compat/torch_loader.py:57-133``): a nested dict of numpy
@@ -202,3 +203,103 @@ def transformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 gmflow_state_dict_from_jax = flowformer_state_dict_from_jax = transformer_state_dict_from_jax
+
+
+# the JAX OccUpsampleNetwork wraps each of these ConvRelus as ``<name>_0/0``
+# where the reference's module is ``<name>.0`` (irr_modules.py:30-57)
+_OCC_UPSAMPLE_CONVS = {"init_conv_0": "init_conv", "res_end_conv_0": "res_end_conv", "out_convs_0": "out_convs"}
+
+
+def _split_indices(p: str) -> list:
+    """``convs_0_1`` → ``convs.0.1``, ``conv_last_0`` → ``conv_last.0``:
+    every trailing ``_N`` a ``ModuleList``/``Sequential`` index."""
+    out = []
+    while True:
+        head, _, idx = p.rpartition("_")
+        if not (head and idx.isdigit()):
+            return [p] + out[::-1]
+        out.append(idx)
+        p = head
+
+
+def _pwc_torch_path(path) -> list:
+    """A flax module path of the JAX IRR-PWC line → the port's (the
+    reference's names, the inverse of ``irrpwc_alias``): indices split off
+    (``feature_pyramid_extractor/convs_0_1/0`` →
+    ``feature_pyramid_extractor.convs.0.1.0``, ``flow_estimators_2`` →
+    ``flow_estimators.2``, ``convs_6_0`` → ``convs.6.0``), save for the
+    per-level reducers ``conv_1x1_fine_{i}``, which keep their names, and
+    the occlusion upsampler's doubly wrapped convs."""
+    out = []
+    for p in path:
+        if p.startswith("conv_1x1_fine_"):
+            out.append(p)
+        elif p in _OCC_UPSAMPLE_CONVS and out[-1:] == ["occ_shuffle_upsample"]:
+            out.append(_OCC_UPSAMPLE_CONVS[p])
+        else:
+            out += _split_indices(p)
+    return out
+
+
+def _conv_leaf(path, a: np.ndarray, transposed: bool = False):
+    """(port leaf name, array) of a conv's ``kernel`` (HWIO → OIHW; a
+    ``Deconv``'s [kh, kw, Cin, Cout] → torch's [Cin, Cout, kh, kw], no flip)
+    or ``bias``."""
+    if path[-1] == "bias":
+        return "bias", a
+    if path[-1] != "kernel" or a.ndim != 4:
+        raise ValueError(f"unexpected param {'/'.join(path)} {a.shape}")
+    return "weight", a.transpose((2, 3, 0, 1) if transposed else (3, 2, 0, 1))
+
+
+def irrpwc_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``PWCNet``, ``IRRPWCOcc`` or ``PWCFamilyNet`` params (any flags)
+    → the port's ``state_dict`` of the same model."""
+    if "params" in params:
+        params = params["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        name, a = _conv_leaf(path, np.array(leaf, np.float32))
+        sd[".".join(_pwc_torch_path(path[:-1]) + [name])] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+def _flownet_torch_path(path, plain: bool) -> list:
+    """A flax module path of the JAX FlowNet line → the port's (the inverse
+    of ``flownet1s_alias``): ``conv1_0`` → ``_conv1.0`` (under
+    ``_flownets`` in the plain net), ``flownets/conv4_1_0`` →
+    ``_flownets._conv4_1.0``, ``flownets/flow_decoder/deconv_flow5/0`` →
+    ``_flownets._deconv5.0``, ``.../predict_flow6`` →
+    ``_flownets._predict_flow6``, ``occ_decoder/deconv_occ5/0`` →
+    ``_flownets._deconv_occ5.0``; IRR-FlowNet's refinement and occlusion
+    upsampler as in the IRR-PWC line."""
+    head = path[0]
+    if head in ("refine_flow", "refine_occ", "occ_shuffle_upsample"):
+        return _pwc_torch_path(path)
+    if head in ("conv1_0", "conv2_0", "conv3_0"):
+        return (["_flownets"] if plain else []) + [f"_{head[:-2]}", "0"]
+    if head != "flownets":
+        raise ValueError(f"unexpected FlowNet module {'/'.join(path)}")
+    rest = path[1:]
+    if rest[0] in ("flow_decoder", "occ_decoder"):
+        mod = rest[1].replace("deconv_flow", "deconv")
+        return ["_flownets", f"_{mod}"] + list(rest[2:])
+    if not rest[0].endswith("_0"):
+        raise ValueError(f"unexpected FlowNet module {'/'.join(path)}")
+    return ["_flownets", f"_{rest[0][:-2]}", "0"] + list(rest[1:])
+
+
+def flownet1s_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``FlowNet1S`` (any flags) or ``IRRFlowNet`` params → the port's
+    ``state_dict``.  The plain net (its stem 64 wide, where the irr nets'
+    is 32) keeps its stem under ``_flownets``; the decoders' transposed
+    convs (``upsample_*``, ``deconv_*``) take torch's [Cin, Cout, kh, kw]."""
+    if "params" in params:
+        params = params["params"]
+    plain = np.shape(params["conv1_0"]["kernel"])[-1] == 64
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        transposed = any(p.startswith(("upsample_", "deconv_")) for p in path)
+        name, a = _conv_leaf(path, np.array(leaf, np.float32), transposed)
+        sd[".".join(_flownet_torch_path(path[:-1], plain) + [name])] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd

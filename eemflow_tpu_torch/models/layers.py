@@ -58,6 +58,16 @@ class ConvRelu(nn.Sequential):
         )
 
 
+class Deconv(nn.ConvTranspose2d):
+    """torch ``ConvTranspose2d(k=4, s=2, p=1)``: exactly 2× the input size
+    (counterpart of the JAX ``Deconv``, ``eemflow_tpu/models/layers.py:84-112``,
+    which keeps its kernel as [kh, kw, Cin, Cout] and flips it in its apply;
+    ``compat.from_jax`` permutes it (2, 3, 0, 1) to this [Cin, Cout, kh, kw])."""
+
+    def __init__(self, in_channels: int, features: int, bias: bool = True):
+        super().__init__(in_channels, features, 4, stride=2, padding=1, bias=bias)
+
+
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     """ShuffleNet channel shuffle of an NCHW tensor (reference
     ``EEMFlow.py:51-57``): the same channel permutation as the JAX

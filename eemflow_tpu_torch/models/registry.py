@@ -1,26 +1,49 @@
 """Model registry of the port (counterpart of
-``eemflow_tpu/models/registry.py:32-100``): ``eemflow``, ``eemflow_plus``,
-``eraft``, ``raft``, the GMA line of baselines, ``gma``, ``skflow`` and
-``kpaflow``, and the transformer baselines ``gmflow`` and ``flowformer``,
-so far."""
+``eemflow_tpu/models/registry.py:32-100, 110-209``): ``eemflow``,
+``eemflow_plus``, ``eraft``, ``raft``, the GMA line of baselines, ``gma``,
+``skflow`` and ``kpaflow``, the transformer baselines ``gmflow`` and
+``flowformer``, and the IRR-PWC and FlowNet line (``irrpwc``,
+``irrpwc_occ``, the seven ``pwcnet*`` variants, the five ``flownet1s*``
+and ``irr_flownet``), so far.  A variant the JAX registry binds as a
+preset (``functools.partial`` of one class) is one here too; the config
+reader leaves its bound fields to it."""
 
 from __future__ import annotations
 
+import functools
 import inspect
 
 from eemflow_tpu_torch.models.eemflow import EEMFlow
 from eemflow_tpu_torch.models.eemflow_plus import EEMFlowPlus
 from eemflow_tpu_torch.models.eraft import ERAFT
 from eemflow_tpu_torch.models.flowformer import FlowFormer
+from eemflow_tpu_torch.models.flownet1s import FlowNet1S, IRRFlowNet
 from eemflow_tpu_torch.models.gma import RAFTGMA
 from eemflow_tpu_torch.models.gmflow import GMFlow
+from eemflow_tpu_torch.models.irrpwc import IRRPWCOcc, PWCFamilyNet, PWCNet
 from eemflow_tpu_torch.models.kpaflow import KPAFlow
 from eemflow_tpu_torch.models.raft import RAFT
 from eemflow_tpu_torch.models.skflow import SKFlow
 
+_preset = functools.partial
+
 MODEL_REGISTRY = {
     "eemflow": EEMFlow, "eemflow_plus": EEMFlowPlus, "eraft": ERAFT, "raft": RAFT,
     "gma": RAFTGMA, "skflow": SKFlow, "kpaflow": KPAFlow, "gmflow": GMFlow, "flowformer": FlowFormer,
+    "irrpwc": PWCNet, "irrpwc_occ": IRRPWCOcc,
+    "pwcnet": PWCFamilyNet,
+    "pwcnet_bi": _preset(PWCFamilyNet, bi=True),
+    "pwcnet_occ": _preset(PWCFamilyNet, occ=True),
+    "pwcnet_occ_bi": _preset(PWCFamilyNet, bi=True, occ=True),
+    "pwcnet_irr_bi": _preset(PWCFamilyNet, irr=True, bi=True),
+    "pwcnet_irr_occ": _preset(PWCFamilyNet, irr=True, occ=True),
+    "pwcnet_irr_occ_bi": _preset(PWCFamilyNet, irr=True, bi=True, occ=True),
+    "flownet1s": FlowNet1S,
+    "flownet1s_irr": _preset(FlowNet1S, irr=True),
+    "flownet1s_irr_bi": _preset(FlowNet1S, irr=True, bi=True),
+    "flownet1s_irr_occ": _preset(FlowNet1S, irr=True, occ=True),
+    "flownet1s_irr_occ_bi": _preset(FlowNet1S, irr=True, bi=True, occ=True),
+    "irr_flownet": IRRFlowNet,
 }
 
 # reference CLI spellings (train_EEMFlow_HREM.py:30-55) → registry names, the
@@ -45,6 +68,8 @@ FAST_EVAL_KWARGS = {"eemflow": {"fast_head": True, "fast_pyramid": True}}
 
 
 def _ctor(name: str):
+    """The registry's constructor for ``name``: a class, or a preset of one
+    (``functools.partial``, whose ``keywords`` are the bound fields)."""
     name = ALIASES.get(name, name)
     if name not in MODEL_REGISTRY:
         raise KeyError(f"Unknown model '{name}'. Available: {sorted(MODEL_REGISTRY)}")

@@ -16,7 +16,14 @@ through a normalized grid, in another rounding):
     analytically (the sample lies inside [0, W-1]×[0, H-1]) as the JAX
     package computes it, not by thresholding a warped ones tensor;
   * ``warp_align_corners`` — reference ``EEMFlow+.py:137-149``: grid +
-    flow sampled with ``align_corners=True`` (exact pixel coordinates).
+    flow sampled with ``align_corners=True`` (exact pixel coordinates);
+  * ``pwc_warp`` — the IRR-PWC line's ``WarpingLayer``
+    (``eemflow_tpu/models/irrpwc.py:81-94``): a flow in input-image pixels
+    × ``div_flow`` moved onto the feature grid by ``(W−1)/(width_im−1)/
+    div_flow``, align_corners=True, times the analytic in-bounds mask;
+  * ``flownet_warp`` — the FlowNet line's (``eemflow_tpu/models/
+    flownet1s.py:63-73``): the scale ``(W−1)/(width_im·div_flow)`` (÷W,
+    not ÷(W−1)) and no mask.
 
 The coordinates are computed in float32 whatever the feature dtype (a
 bf16 coordinate cannot address a 1280-pixel row); the samples keep the
@@ -105,3 +112,32 @@ def warp_align_corners(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """EEMFlow+'s ``warp``: backwarp with align_corners=True (exact pixel
     coordinates)."""
     return _gather_bilinear(x, *_coords(x, flow))
+
+
+def _scaled_coords(x: torch.Tensor, flow: torch.Tensor, sx: float, sy: float):
+    """Pixel coordinates grid + flow·(sx, sy), float32 [B, H, W] each."""
+    B, H, W, _ = x.shape
+    f = flow.float()
+    gx = torch.arange(W, dtype=torch.float32, device=x.device).view(1, 1, W)
+    gy = torch.arange(H, dtype=torch.float32, device=x.device).view(1, H, 1)
+    return gx + f[..., 0] * sx, gy + f[..., 1] * sy
+
+
+def pwc_warp(x: torch.Tensor, flow: torch.Tensor, height_im: int, width_im: int, div_flow: float) -> torch.Tensor:
+    """IRR-PWC's ``WarpingLayer``: ``x`` [B, H, W, C] back by ``flow``
+    [B, H, W, 2] given in input-image pixels × ``div_flow``, zero where the
+    sample lies outside [0, W-1]×[0, H-1]."""
+    B, H, W, _ = x.shape
+    px, py = _scaled_coords(x, flow, (W - 1) / max(width_im - 1, 1) / div_flow,
+                            (H - 1) / max(height_im - 1, 1) / div_flow)
+    out = _gather_bilinear(x, px, py)
+    inb = (px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)
+    return out * inb[..., None].to(x.dtype)
+
+
+def flownet_warp(x: torch.Tensor, flow: torch.Tensor, height_im: int, width_im: int, div_flow: float) -> torch.Tensor:
+    """FlowNet's ``WarpingLayer``: ``x`` [B, H, W, C] back by ``flow``
+    scaled by ``(W−1)/(width_im·div_flow)``, zero padding, no mask."""
+    B, H, W, _ = x.shape
+    return _gather_bilinear(x, *_scaled_coords(x, flow, (W - 1) / (width_im * div_flow),
+                                               (H - 1) / (height_im * div_flow)))

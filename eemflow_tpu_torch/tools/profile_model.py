@@ -1,5 +1,5 @@
-"""Profile the port's eval step or a train step (EEMFlow, EEMFlow+, ERAFT,
-GMA, SKFlow or KPAFlow) with ``torch.profiler`` (counterpart of ``tools/profile_model.py``): device
+"""Profile the port's eval step or a train step (any model of
+``time_eval.MODELS``) with ``torch.profiler`` (counterpart of ``tools/profile_model.py``): device
 time by kernel, the device's busy share over the profiled window (the
 union of its kernels' and copies' intervals in the exported trace over the
 window's wall time), host milliseconds per call and the host's own time
@@ -27,7 +27,7 @@ Usage:
   python -m eemflow_tpu_torch.tools.profile_model --train -model eemflow_plus --bins 15 -bs 6 [--bf16]
   python -m eemflow_tpu_torch.tools.profile_model --train -model eraft -bs 6 [--bf16]
   python -m eemflow_tpu_torch.tools.profile_model [--train] -model kpaflow --size 256 256 -bs 6 [--bf16]
-      (also gma, skflow, gmflow, flowformer)
+      (also gma, skflow, gmflow, flowformer, irrpwc, irrpwc_occ, pwcnet*, flownet1s*, irr_flownet)
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """MVSEC evaluation CLI of the port (counterpart of ``tools/test_mvsec.py``;
 reference ``test_mvsec.py``), for the two-volume models (``eemflow``,
 ``eemflow_plus``, ``eraft``, ``raft``, ``gma``, ``skflow``, ``kpaflow``,
-``gmflow``, ``flowformer``).
+``gmflow``, ``flowformer`` and the IRR-PWC and FlowNet line).
 
 Evaluates one sequence under the dense or the sparse protocol with the
 reference's masks: the 256×256 centre crop of the validation frames,
@@ -24,7 +24,7 @@ Usage:
       --sequence indoor_flying1 --data_root dataset/MVSEC --checkpoint <ckpt> \
       --eval_type dense --stride 30 [--device_voxelize] [--fast] [--eval_batch 2] [--device cpu]
   python -m eemflow_tpu_torch.tools.test_mvsec -model kpaflow -int dt1 --checkpoint kpaflow.pth.tar \
-      [--device_voxelize]   (also -model gma, skflow, gmflow, flowformer)
+      [--device_voxelize]   (also -model gma, skflow, gmflow, flowformer, irrpwc, pwcnet_irr_occ_bi, ...)
 """
 
 from __future__ import annotations

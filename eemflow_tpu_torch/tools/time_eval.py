@@ -1,7 +1,8 @@
 """Time the eval forward of the port (counterpart of ``tools/time_eval.py``
 for ``-model eemflow``, ``eemflow_plus``, ``eraft``, ``raft``, ``gma``,
-``skflow``, ``kpaflow``, ``gmflow`` and ``flowformer``): the user-facing
-A/B between the standard and the fused modes.
+``skflow``, ``kpaflow``, ``gmflow``, ``flowformer`` and the IRR-PWC and
+FlowNet line, ``MODELS``): the user-facing A/B between the standard and
+the fused modes.
 
 On the card the forward is timed with CUDA events over ``--reps``
 back-to-back calls after a warm-up; on the CPU (``--device cpu``) with the
@@ -18,7 +19,8 @@ Usage:
   python -m eemflow_tpu_torch.tools.time_eval -model eraft --size 720 1280 -bs 1 \\
       [--fused_update | --fused_update_bf16] [--corr_fast]
   python -m eemflow_tpu_torch.tools.time_eval -model gma --size 720 1280 -bs 1
-      (also raft, skflow, kpaflow, gmflow, flowformer)
+      (also raft, skflow, kpaflow, gmflow, flowformer, irrpwc, irrpwc_occ, pwcnet*, flownet1s*,
+      irr_flownet)
 """
 
 from __future__ import annotations
@@ -36,7 +38,10 @@ from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 
 
 # the models the tools time and profile
-MODELS = ["eemflow", "eemflow_plus", "eraft", "raft", "gma", "skflow", "kpaflow", "gmflow", "flowformer"]
+MODELS = ["eemflow", "eemflow_plus", "eraft", "raft", "gma", "skflow", "kpaflow", "gmflow", "flowformer",
+          "irrpwc", "irrpwc_occ", "pwcnet", "pwcnet_bi", "pwcnet_occ", "pwcnet_occ_bi", "pwcnet_irr_bi",
+          "pwcnet_irr_occ", "pwcnet_irr_occ_bi", "flownet1s", "flownet1s_irr", "flownet1s_irr_bi",
+          "flownet1s_irr_occ", "flownet1s_irr_occ_bi", "irr_flownet"]
 
 
 def add_mode_flags(p: argparse.ArgumentParser) -> None:

@@ -28,7 +28,7 @@ Usage:
       --config configs/hrem_eemflow_plus.json --full_res_flow [...]
   python -m eemflow_tpu_torch.tools.train_hrem -model eraft --full_res_flow [...]
   python -m eemflow_tpu_torch.tools.train_hrem -model gma --full_res_flow [...]
-      (also skflow, kpaflow, gmflow, flowformer)
+      (also skflow, kpaflow, gmflow, flowformer and the IRR-PWC and FlowNet line)
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """MVSEC training CLI of the port (counterpart of ``tools/train_mvsec.py``;
 reference ``train_mvsec.py`` engine), for the two-volume models
 (``eemflow``, ``eemflow_plus``, ``eraft``, ``raft``, ``gma``, ``skflow``,
-``kpaflow``, ``gmflow``, ``flowformer``).
+``kpaflow``, ``gmflow``, ``flowformer`` and the IRR-PWC and FlowNet line,
+which train with the default config).
 
 Builds a registry model with its parameters drawn from ``--seed`` and its
 input channels from the config's ``num_voxel_bins``, loads a JSON config
@@ -23,7 +24,8 @@ Usage:
       --sequence outdoor_day2 --data_root dataset/MVSEC --config configs/mvsec_eraft.json \
       -bs 6 --lr 1e-4 [-se N] [--device_voxelize] [--bf16] [--device cpu]
   python -m eemflow_tpu_torch.tools.train_mvsec -model skflow --config configs/mvsec_skflow.json -bs 6 [...]
-      (also gma, kpaflow, gmflow -bs 8 and flowformer with configs/mvsec_<model>.json)
+      (also gma, kpaflow, gmflow -bs 8 and flowformer with configs/mvsec_<model>.json;
+      irrpwc, irrpwc_occ, pwcnet*, flownet1s*, irr_flownet with the default config, -bs 8)
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ the port trains.
 ``two_volume`` is the reference's ``TrainRaftEvents`` contract
 (``train_mvsec.py:375-386``, the HREM entry path): ``model(ev_old,
 ev_new)``, the γ-weighted sequence loss; the port trains EEMFlow,
-EEMFlow+, ERAFT, RAFT, GMA, SKFlow, KPAFlow, GMFlow and FlowFormer through
-it.  The JAX package's other families
+EEMFlow+, ERAFT, RAFT, GMA, SKFlow, KPAFlow, GMFlow, FlowFormer and the
+IRR-PWC and FlowNet line through it.  The JAX package's other families
 (single volume, raw segments, event + image, the UNet, dense-context and
 MIMO-UNet reconstruction losses, GMFlowNet's matching loss) wait for their
 models (``ROADMAP.md`` section 1 item 7); asking for one raises.
@@ -49,6 +49,12 @@ MODEL_FAMILY: Dict[str, str] = {
     "eemflow": "two_volume", "eemflow_plus": "two_volume", "eraft": "two_volume", "raft": "two_volume",
     "gma": "two_volume", "skflow": "two_volume", "kpaflow": "two_volume", "gmflow": "two_volume",
     "flowformer": "two_volume",
+    # the IRR-PWC and FlowNet line (reference model/IRRPWC/*.py)
+    "irrpwc": "two_volume", "irrpwc_occ": "two_volume",
+    "pwcnet": "two_volume", "pwcnet_bi": "two_volume", "pwcnet_occ": "two_volume", "pwcnet_occ_bi": "two_volume",
+    "pwcnet_irr_bi": "two_volume", "pwcnet_irr_occ": "two_volume", "pwcnet_irr_occ_bi": "two_volume",
+    "flownet1s": "two_volume", "flownet1s_irr": "two_volume", "flownet1s_irr_bi": "two_volume",
+    "flownet1s_irr_occ": "two_volume", "flownet1s_irr_occ_bi": "two_volume", "irr_flownet": "two_volume",
 }
 
 

@@ -11,7 +11,10 @@ parameters (optax's ``tx.init``), which returns the :class:`Optimizer`:
     which optax does not);
   * ``torch.optim.AdamW`` with b1 0.9 (fixed) and b2 0.999, ``eps`` and
     ``weight_decay`` on every parameter, biases too, as ``optax.adamw``
-    without a mask: ``p ← p − lr · (m̂ / (√v̂ + eps) + wd · p)``;
+    without a mask: ``p ← p − lr · (m̂ / (√v̂ + eps) + wd · p)``.  A
+    parameter the loss does not reach (IRR-FlowNet's occlusion decoder,
+    whose outputs the refinement takes detached) gets a zero gradient, as
+    JAX gives it, so that it decays as in JAX; torch's AdamW would skip it;
   * the learning rate of update n (from 0) is ``onecycle_lr(n)``, a
     ``LambdaLR`` over this module's copy of the JAX schedule.  Not
     ``OneCycleLR``: that one cycles beta1 unless told otherwise and raises
@@ -86,8 +89,10 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         """One update from the parameters' gradients; returns the gradients'
         global norm before the clip."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = clip_by_global_norm_(grads, self.clip)
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        norm = clip_by_global_norm_([p.grad for p in self.params], self.clip)
         self.adamw.step()
         self.scheduler.step()
         return norm

@@ -6,7 +6,9 @@
 
 ``model_kwargs_from_config`` forwards every top-level config key that
 names a parameter of the port's model constructor, JSON lists becoming
-tuples, so ``{"fused_update": true}`` reaches ``ERAFT(fused_update=True)``.
+tuples, so ``{"fused_update": true}`` reaches ``ERAFT(fused_update=True)``;
+a key that the registry's preset binds (``pwcnet_occ_bi``'s ``bi`` and
+``occ``) is left to the preset, as in JAX: the name defines the variant.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ def load_config(path: str) -> Dict[str, Any]:
 
 def model_kwargs_from_config(model_name: str, cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The model hyperparameters a config carries: each top-level key that
-    names a parameter of the model's constructor."""
-    fields = set(inspect.signature(_ctor(model_name)).parameters)
+    names a parameter of the model's constructor and is not bound by its
+    registry preset."""
+    ctor = _ctor(model_name)
+    fields = set(inspect.signature(ctor).parameters) - set(getattr(ctor, "keywords", {}))
     return {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items() if k in fields}
 
 

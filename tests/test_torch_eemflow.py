@@ -112,7 +112,7 @@ def test_registry():
     with pytest.raises(ValueError, match="does not support"):
         get_eval_model("eemflow", fast_decoders=True)
     with pytest.raises(KeyError):
-        get_model("irrpwc")  # not ported yet
+        get_model("gmflownet")  # not ported yet
 
 
 FAST_MODES = {
