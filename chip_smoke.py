@@ -4,8 +4,8 @@ NVIDIA GPU: the quickest proof that the port builds, is right and runs
 its main paths on the card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 0,1,2,3f    # only the named phases (0 and
-                                               # 1 always; 4 needs 2-3f)
+    python3 chip_smoke.py --phases 0,1,2,3g    # only the named phases (0 and
+                                               # 1 always; 4 needs 2-3g)
     python3 chip_smoke.py --k3-bf16-seeds 20   # only K3's bf16 check on
                                                # EEMFlow+'s chains, 20 draws
 
@@ -153,9 +153,26 @@ where it stopped:
      ``pwcnet_irr_occ_bi``, ``flownet1s`` and ``irr_flownet`` in bf16 and
      float32 with their launch counts; 20 steps on one batch of sparse grids
      with finite gradients, lowering the loss (IRR-FlowNet's need not fall:
-     ``PWC_NO_DESCENT``); one float32 train step at 128×128 B=2 on the card
-     against the CPU for ``irrpwc`` and ``irr_flownet``; the phase's
+     ``PWC_NO_DESCENT``); one train step at 128×128 B=2 on the card against
+     the CPU for ``irrpwc`` (float32) and ``irr_flownet`` (float64:
+     ``PWC_STEP_DTYPE``); the phase's
      seconds;
+  3g. the research eval surface (a generator of its own): ``test_hrem
+     --mode`` save_flow, low_epe, warp, density and dsec_submission with the
+     golden EEMFlow and ``--device_voxelize`` on one sample of the seed-99
+     split at 720×1280, and save_flow under ``--fast``, each with its
+     launch counts (K1, K2; K3 and K4 under ``--fast``), the ``.flo``
+     against the standard path's flow (1e-5·max(1, |flow|)), the density
+     mode's AEE against the standard AEE (1e-5), the DSEC file decoded back
+     to the flow (1/128 px); ``test_mvsec --mode`` warp_loss and multi_key
+     on phase 3c's dt1 sequence, the card against the CPU (1e-5); EEMFlow's
+     ``s2d_stem`` and ``stacked_coarse`` (and both) at 720×1280, B=1 and 2,
+     golden weights, against the standard forward (1e-5·max(1, |flow|)),
+     back to back, K2 one launch a forward; ``time_eval --bf16`` for EEMFlow
+     (standard and ``--fast``), EEMFlow+ and ERAFT (ms and the flow's
+     relative L2 from float32); ``train_hrem --viz --device_voxelize`` (two
+     steps, pictures every step) and ``serve --viz`` on phase 3's stream,
+     their PNGs decoded; the phase's seconds;
   4. times (CUDA events after a warm-up): each kernel on the device
      (calls queued behind a sleep kernel, so the host's issue time is not
      counted) and per wrapper call back to back, beside its bound, its
@@ -231,7 +248,8 @@ device-voxelize runs, K2's the two-scale GMFlow forward of phase 3e and
 phase 3f's PWC forwards and train steps),
 ``launches_per_train_step_eemflow_plus`` and ``_eraft``
 beside it; ``mvsec_*`` fields: the kernel at MVSEC's shapes and its
-launches on the MVSEC paths of phase 3c), and as the last line
+launches on the MVSEC paths of phase 3c; K1-K4's ``launches`` include
+phase 3g's CLI runs), and as the last line
 ``{"ok": true, "device": {...}}``.
 Any fault exits non-zero without the ``ok`` line, as does a machine
 without CUDA.  Synthetic data goes to a temporary directory outside the
@@ -4129,6 +4147,15 @@ PWC_GOLDENS = {"irrpwc": ("irrpwc_mvsec_golden.pth.tar", "mvsec_golden_irrpwc.js
 PWC_HREM = ("irrpwc", "irrpwc_occ", "pwcnet_irr_occ_bi", "flownet1s", "irr_flownet")
 PWC_TRAIN = ("irrpwc", "pwcnet_irr_occ_bi", "flownet1s", "irr_flownet")
 PWC_STEP = ("irrpwc", "irr_flownet")
+# the type of the card-vs-CPU step (``pwc_step_card_vs_cpu``): IRR-FlowNet's
+# float32 step is not a function of its inputs to 1e-3 of the largest |g|.
+# The CPU's float32 step against itself, each grid cell moved by one float32
+# rounding step, moves by up to 1.944e-3 (``refine_flow.kernel.convs.4.0.
+# weight``); on the card the same draws gave 1.7e-6, 2.1e-4 and 1.644e-3 in
+# three runs of one call, PR 17's tree failing as well.  In float64 one
+# rounding step moves it by under 1e-15: the check holds the card's float64
+# step there
+PWC_STEP_DTYPE = {"irrpwc": torch.float32, "irr_flownet": torch.float64}
 PWC_CONFIG = "mvsec_event_flow_dense.json"  # the MVSEC training CLI's default
 PWC_BATCH = 8  # its batch_size
 PWC_PATH_TOL = 1e-4
@@ -4188,8 +4215,9 @@ def phase_pwc(device: torch.device, tmp: str) -> dict:
     float32 (``--device_voxelize``), each run's launch counts set to 0 just
     before it and read just after; on sparse event grids, finite gradients
     and 20 steps on one batch lowering its loss in bf16 and float32; one
-    float32 train step at 128x128 B=2 on the card against the CPU for
-    ``irrpwc`` and ``irr_flownet``.  Draws from a generator of its own.
+    train step at 128x128 B=2 on the card against the CPU for ``irrpwc``
+    (float32) and ``irr_flownet`` (float64).  Draws from a generator of its
+    own.
     Returns the K1 calls and K2 launches of its runs."""
     from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
     from eemflow_tpu_torch.models.registry import get_eval_model
@@ -4355,7 +4383,8 @@ def pwc_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
     backward is less exact, ``tests/test_torch_train_irrpwc.py``), both from
     the grids the card's K1 makes of one raw-event batch with flips: the
     loss and every gradient in units of the model's largest |g| (phase 3b's
-    ERAFT rule), and the whole gradient.  The same grids on both sides,
+    ERAFT rule), and the whole gradient, in ``PWC_STEP_DTYPE[name]`` (the
+    parameters and grids cast).  The same grids on both sides,
     because IRR-FlowNet's decoders take their whole gradient through the
     bilinear warps' coordinate derivatives (its refinement takes their flow
     detached), which jump where a sample crosses a pixel: K1's atomics move
@@ -4369,7 +4398,8 @@ def pwc_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
     from eemflow_tpu_torch.train.trainer import create_train_state, make_train_step
 
     h, w, B, N = 128, 128, 2, 4096
-    params = pwc_seeded(get_model(name), rng).state_dict()
+    dtype = PWC_STEP_DTYPE[name]
+    params = {k: v.to(dtype) if v.is_floating_point() else v for k, v in pwc_seeded(get_model(name), rng).state_dict().items()}
     ev, nv = k1_batch(rng, (N, N - 100, N - 7, N), N=N, h=h, w=w)
     raw = {
         "events_old": ev[:B], "events_new": ev[B:], "n_old": nv[:B], "n_new": nv[B:],
@@ -4382,7 +4412,8 @@ def pwc_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
         grids = make_device_preprocess(BINS, h, w)({k: torch.from_numpy(v).to(device) for k, v in raw.items()})
     runs = {}
     for key, dev in (("cpu", torch.device("cpu")), ("card", device)):
-        state = create_train_state(get_model(name), 0, make_optimizer(1e-4, num_steps=100), params=params, device=dev)
+        state = create_train_state(get_model(name).to(dtype), 0, make_optimizer(1e-4, num_steps=100), params=params,
+                                   device=dev)
         grads = {}
         opt_step = state.opt.step
 
@@ -4395,7 +4426,8 @@ def pwc_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
 
         state.opt.step = step_recording_grads
         with torch.backends.mkldnn.flags(enabled=False):
-            _, metrics = make_train_step()(state, {k: v.to(dev) for k, v in grids.items()})
+            _, metrics = make_train_step()(state, {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+                                                   for k, v in grids.items()})
         runs[key] = (float(metrics["loss"]), grads)
     launches = (launch_counts["voxel_scatter"] - before["voxel_scatter"],
                 launch_counts["local_corr"] - before["local_corr"])
@@ -4404,7 +4436,8 @@ def pwc_step_card_vs_cpu(device: torch.device, name: str, rng) -> None:
     worst, leaf = max((float((g_gpu[n] - g).abs().max()) / top, n) for n, g in g_cpu.items())
     whole = float(torch.cat([(g_gpu[n] - g).flatten() for n, g in g_cpu.items()]).norm()
                   / torch.cat([g.flatten() for g in g_cpu.values()]).norm())
-    say(f"{name}: one float32 train step at {h}x{w} B={B} from the card's grids (K1 calls, K2 launches {launches}), "
+    say(f"{name}: one {str(dtype)[6:]} train step at {h}x{w} B={B} from the card's grids (K1 calls, K2 launches "
+        f"{launches}), "
         f"card vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (|Δ| relative {abs(loss_gpu - loss_cpu) / loss_cpu:.3e}, "
         f"tolerance {TRAIN_LOSS_RTOL:g}); grads: the worst parameter's max|Δ| is {worst:.3e} of the model's largest "
         f"|g| ({leaf}; tolerance {TRAIN_GRAD_TOL:g}); the whole gradient {whole:.3e} relative L2")
@@ -4491,11 +4524,239 @@ def times_pwc(device, tmp: str) -> dict:
     return out
 
 
-PHASES = ("0", "1", "2", "3", "3b", "3c", "3d", "3e", "3f", "4")
+RESEARCH_HREM_MODES = ("save_flow", "low_epe", "warp", "density", "dsec_submission")
+# K1 calls of a device-voxelize research run on one sample: two frames, and
+# two more where the mode reads the input volumes (warp, density)
+RESEARCH_K1 = {"warp": 4, "density": 4}
+RESEARCH_TOL = 1e-5  # a mode's flow or AEE against the standard path's (the same function)
+DSEC_TOL = 1 / 128  # the 16-bit code's step
+EEMFLOW_OPTIONS = (("standard", {}), ("s2d_stem", {"s2d_stem": True}), ("stacked_coarse", {"stacked_coarse": True}),
+                   ("s2d_stem + stacked_coarse", {"s2d_stem": True, "stacked_coarse": True}))
+# time_eval --bf16 at 720x1280: (label, model, flags)
+BF16_TIMED = (("EEMFlow", "eemflow", []), ("EEMFlow --fast", "eemflow", ["--fast"]),
+              ("EEMFlow+", "eemflow_plus", []), ("ERAFT", "eraft", []))
+SERVE_TOL_BF16 = 0.02  # the serving bf16 limit (PERF.md section 2), of the flow's L2
+
+
+def png_shape(path: str) -> tuple:
+    from eemflow_tpu_torch.viz.png import read_png
+
+    return read_png(path).shape
+
+
+def phase_research(device: torch.device, tmp: str) -> dict:
+    """The research eval surface through the port's CLIs: on the seed-99
+    HREM split at 720x1280 with the golden EEMFlow and ``--device_voxelize``,
+    one sample each, ``test_hrem --mode`` save_flow, low_epe, warp, density
+    and dsec_submission, and save_flow under ``--fast``, each run's launch
+    counts set to 0 just before it and read just after (K1, K2; K3, K4 under
+    ``--fast``), the ``.flo`` against the standard path's flow, the density
+    mode's AEE against the standard AEE and the DSEC file decoded back; on
+    phase 3c's MVSEC dt1 sequence ``test_mvsec --mode`` warp_loss and
+    multi_key, the card against the CPU; EEMFlow's ``s2d_stem`` and
+    ``stacked_coarse`` at 720x1280, B=1 and 2, golden weights, against the
+    standard forward, back to back in time_eval's timing, K2 once a forward;
+    ``time_eval --bf16`` for EEMFlow (standard and ``--fast``), EEMFlow+ and
+    ERAFT; ``train_hrem --viz --device_voxelize`` (2 steps, pictures every
+    step) and ``serve --viz`` on phase 3's stream, their PNGs decoded.
+    Draws from a generator of its own.  Returns its runs' K1-K4 launches."""
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.data.dsec import flow_16bit_to_float
+    from eemflow_tpu_torch.data.device_input import make_device_preprocess
+    from eemflow_tpu_torch.data.hrem import HREMEventFlow
+    from eemflow_tpu_torch.eval.runner import ResearchTester
+    from eemflow_tpu_torch.events.io import read_flo
+    from eemflow_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+    from eemflow_tpu_torch.tools.serve import main as serve
+    from eemflow_tpu_torch.tools.test_hrem import main as test_hrem
+    from eemflow_tpu_torch.tools.test_mvsec import main as test_mvsec
+    from eemflow_tpu_torch.tools.time_eval import main as time_eval
+    from eemflow_tpu_torch.viz.flow_viz import flow_to_image
+    from eemflow_tpu_torch.viz.png import read_png
+
+    phase("3g research eval: test_hrem and test_mvsec --mode, EEMFlow's s2d_stem and stacked_coarse, time_eval "
+          "--bf16, train_hrem and serve --viz")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+    kernels = ("voxel_scatter", "local_corr", "fused_convs_pool", "coarse_head")
+    calls = dict.fromkeys(kernels, 0)
+
+    def counted(label, want):
+        counts = dict(launch_counts)
+        got = {k: counts[k] for k in kernels}
+        require(got == {k: want.get(k, 0) for k in kernels} and counts["update_block"] == 0,
+                f"{label}: launches {counts}, not {want}")
+        for k in kernels:
+            calls[k] += counts[k]
+        return got
+
+    # the standard path's flow and AEE on the split's first sample (one model build)
+    root = hrem_split(tmp)
+    sd = to_state_dict(load_torch_checkpoint(GOLDEN_CKPT))
+    ds = HREMEventFlow(root, dt="dt1", raw_events=True)
+    ds.change_test_sequence("indoor_fast")
+    model = get_eval_model("eemflow")
+    model.load_state_dict(sd)
+    tester = ResearchTester(model, device, preprocess=make_device_preprocess(ds.num_bins, ds.image_height,
+                                                                             ds.image_width))
+    std_flow = tester.run_sample(ds[0])
+    scale = max(1.0, float(np.abs(std_flow).max()))
+    del tester, model
+    out = os.path.join(tmp, "out_research")
+
+    def hrem_args(save_dir, *extra):
+        return ["-model", "eemflow", "-int", "dt1", "--data_root", root, "--checkpoint", GOLDEN_CKPT, "--max_samples",
+                "1", "--save_dir", save_dir, "--device", str(device), "--device_voxelize", *extra]
+
+    reset_launch_counts()
+    std_aee = test_hrem(hrem_args(out))["indoor_fast"]["AEE"]
+    counted("test_hrem standard", {"voxel_scatter": 2, "local_corr": 1})
+    res = {}
+    for mode in RESEARCH_HREM_MODES:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res[mode] = test_hrem(hrem_args(out, "--mode", mode))
+        got = counted(f"test_hrem --mode {mode}", {"voxel_scatter": RESEARCH_K1.get(mode, 2), "local_corr": 1})
+        say(f"test_hrem --mode {mode} --device_voxelize, 720x1280, one sample: {res[mode]} in "
+            f"{time.perf_counter() - t0:.1f} s; launches {got}")
+    mode_dir = os.path.join(out, "eemflow_dt1")
+    flo = read_flo(os.path.join(mode_dir, "save_flow", "000000.flo"))
+    flo_err = float(np.abs(flo - std_flow).max())
+    density = [aee for aee, n in res["density"].values() if n]
+    dsec_flow, valid = flow_16bit_to_float(read_png(os.path.join(mode_dir, "dsec_submission", "00000.png"))[..., ::-1])
+    dsec_err = float(np.abs(dsec_flow - std_flow).max())
+    pictures = {m: sorted(os.listdir(os.path.join(mode_dir, m))) for m in ("save_flow", "low_epe", "warp")}
+    say(f"save_flow .flo vs the standard path's flow: max|Δ| {flo_err:.3e} (tolerance {RESEARCH_TOL:g}·{scale:.3f}); "
+        f"density AEE {density} vs standard {std_aee:.7f} (tolerance {RESEARCH_TOL:g}); DSEC file decoded vs the "
+        f"flow: max|Δ| {dsec_err:.3e} (tolerance {DSEC_TOL:g}); pictures {pictures}")
+    require(flo_err <= RESEARCH_TOL * scale and len(density) == 1 and abs(density[0] - std_aee) <= RESEARCH_TOL
+            and bool(valid.all()) and dsec_err <= DSEC_TOL + 1e-6
+            and all(png_shape(os.path.join(mode_dir, m, f)) in ((H, W), (H, W, 3))
+                    for m, fs in pictures.items() for f in fs if f.endswith(".png"))
+            and len(pictures["warp"]) == 2 and res["save_flow"] == res["warp"] == res["dsec_submission"] == 1,
+            "a research mode disagrees with the standard path or wrote no pictures")
+    reset_launch_counts()
+    fast_out = os.path.join(tmp, "out_research_fast")
+    test_hrem(hrem_args(fast_out, "--fast", "--mode", "save_flow"))
+    got = counted("test_hrem --mode save_flow --fast",
+                  {"voxel_scatter": 2, "fused_convs_pool": 6, "coarse_head": 1})
+    fast_err = float(np.abs(read_flo(os.path.join(fast_out, "eemflow_dt1", "save_flow", "000000.flo")) - std_flow).max())
+    say(f"test_hrem --mode save_flow --fast: launches {got}; .flo vs the standard path's flow max|Δ| {fast_err:.3e} "
+        f"(tolerance {RESEARCH_TOL:g}·{scale:.3f})")
+    require(fast_err <= RESEARCH_TOL * scale, "save_flow under --fast disagrees with the standard path")
+
+    # MVSEC: warp_loss and multi_key on phase 3c's dt1 sequence, the card against the CPU
+    mroot = mvsec_split(tmp)
+    margs = mvsec_eval_args(mroot, tmp, device, "dt1", "indoor_flying1", "dense") + ["--max_samples", "1"]
+    cpu_args = [a if a != str(device) else "cpu" for a in margs]
+    for mode in ("warp_loss", "multi_key"):
+        reset_launch_counts()
+        card = test_mvsec(margs + ["--mode", mode])
+        got = counted(f"test_mvsec --mode {mode}", {"local_corr": 1})
+        cpu = test_mvsec(cpu_args + ["--mode", mode])
+        a, b = (card, cpu) if mode == "warp_loss" else (card[0], cpu[0])
+        say(f"test_mvsec --mode {mode} (MVSEC dt1 dense, one sample): card {a:.7f}, CPU {b:.7f}, |Δ| {abs(a - b):.3e} "
+            f"(tolerance {RESEARCH_TOL:g}); launches {got}")
+        require(np.isfinite(a) and abs(a - b) <= RESEARCH_TOL, f"test_mvsec --mode {mode}: the card disagrees with the CPU")
+
+    # EEMFlow's options at 720x1280 against the standard forward, back to back
+    for batch in (1, 2):
+        x1, x2 = (torch.from_numpy(rng.standard_normal((batch, H, W, BINS)).astype(np.float32)).to(device)
+                  for _ in range(2))
+        flows, times = {}, {}
+        for label, kw in EEMFLOW_OPTIONS:
+            model = get_eval_model("eemflow", **kw)
+            model.load_state_dict(sd)
+            model.to(device)
+            with torch.inference_mode():
+                reset_launch_counts()
+                flows[label] = model(x1, x2)[1][-1]
+                counted(f"{label} forward B={batch}", {"local_corr": 1})
+                times[label] = cuda_ms(lambda: model(x1, x2))
+        ref = flows["standard"]
+        ref_scale = max(1.0, float(ref.abs().max()))
+        errs = {k: float((v - ref).abs().max()) for k, v in flows.items() if k != "standard"}
+        say(f"EEMFlow 720x1280 B={batch} (golden weights), back to back ms a forward: "
+            f"{', '.join(f'{k} {v:.3f}' for k, v in times.items())}; against the standard flow max|Δ| "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tolerance {RESEARCH_TOL:g}·{ref_scale:.3f}); "
+            f"K2 one launch a forward")
+        require(all(e <= RESEARCH_TOL * ref_scale for e in errs.values()), "an EEMFlow option disagrees with the "
+                "standard forward")
+        del model, x1, x2
+
+    # time_eval --bf16 at 720x1280
+    for label, name, flags in BF16_TIMED:
+        reset_launch_counts()
+        r = time_eval(["-model", name, "--size", str(H), str(W), "-bs", "1", "--reps", "10", "--bf16", "--device",
+                       str(device), *flags])
+        counts = dict(launch_counts)
+        for k in kernels:
+            calls[k] += counts[k]
+        say(f"time_eval --bf16 {label} 720x1280 B=1: {r['ms_per_img']:.3f} ms/img; flow {r['rel_l2']:.3e} relative "
+            f"L2 from float32; launches {counts}")
+        require(np.isfinite(r["rel_l2"]) and r["ms_per_img"] > 0 and counts["update_block"] == 0
+                and (name != "eemflow" or (counts["local_corr"] > 0) != ("--fast" in flags))
+                and ("--fast" not in flags or counts["fused_convs_pool"] > 0 and counts["coarse_head"] > 0),
+                f"time_eval --bf16 {label}: no result or not the kernels of its path")
+        torch.cuda.empty_cache()
+
+    # train_hrem --viz --device_voxelize: 2 steps, pictures every step
+    import eemflow_tpu_torch.tools.train_hrem as train_hrem
+    from eemflow_tpu_torch.train.trainer import Trainer
+
+    train_root = os.path.join(tmp, "hrem_train")
+    if not os.path.isdir(train_root):
+        make_hrem_train_fixture(tmp)
+    save = os.path.join(tmp, "viz_train")
+    cls = train_hrem.Trainer
+    train_hrem.Trainer = lambda **kw: Trainer(viz_every=1, **kw)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_hrem.main(["-model", "eemflow", "-int", "dt1", "--data_root", train_root, "--config",
+                                 train_config(tmp, True), "-bs", "2",
+                                 "--train_iters", "2", "--val_iters", "2", "--save_dir", save, "--device_voxelize",
+                                 "--viz", "--device", str(device)])
+    finally:
+        train_hrem.Trainer = cls
+    got = counted("train_hrem --viz", {"voxel_scatter": 8, "local_corr": 4})
+    viz_dir = os.path.join(save, os.listdir(save)[0], "viz")
+    shapes = {f: png_shape(os.path.join(viz_dir, f)) for f in sorted(os.listdir(viz_dir))}
+    say(f"train_hrem --viz --device_voxelize, B=2, 2 steps: {time.perf_counter() - t0:.1f} s; launches {got} (K1 "
+        f"and K2 also in the pictures' forwards); pictures {shapes}")
+    require(state.step == 2 and sorted(shapes) == sorted(f"{i}_{t}.png" for i in (1, 2)
+                                                          for t in ("flow_gt", "flow_est", "map1", "map2"))
+            and all(shapes[f"{i}_flow_gt.png"] == (16, 16, 3) for i in (1, 2))
+            and all(shapes[f"{i}_flow_est.png"] == shapes[f"{i}_map1.png"] == shapes[f"{i}_map2.png"]
+                    and len(shapes[f"{i}_flow_est.png"]) == 3 for i in (1, 2)),
+            "train_hrem --viz did not write its pictures at the flow's shapes")
+    del state
+
+    # serve --viz on phase 3's stream: a .png beside each .flo
+    stream = os.path.join(tmp, "serve")
+    if not os.path.isdir(stream):
+        make_serve_stream(tmp)
+    sout = os.path.join(tmp, "serve_viz")
+    reset_launch_counts()
+    serve(["--data_root", stream, "--checkpoint", GOLDEN_CKPT, "--warmup", "0", "--out_dir", sout, "--viz",
+           "--device", str(device)])
+    got = counted("serve --viz", {"voxel_scatter": 2 * SERVE_FRAMES, "local_corr": SERVE_FRAMES})
+    flos = sorted(f for f in os.listdir(sout) if f.endswith(".flo"))
+    same = [np.array_equal(read_png(os.path.join(sout, f[:-4] + ".png")),
+                           flow_to_image(read_flo(os.path.join(sout, f)))[:, :, ::-1]) for f in flos]
+    say(f"serve --viz on the {SERVE_FRAMES}-frame stream: {len(flos)} .flo, each .png its colour-wheel picture at "
+        f"{png_shape(os.path.join(sout, flos[0][:-4] + '.png'))}: {all(same)}; launches {got}")
+    require(len(flos) == SERVE_FRAMES and all(same), "serve --viz did not write a picture beside each flow")
+    say(f"phase 3g took {time.perf_counter() - t_phase:.1f} s; its launches {calls}")
+    return calls
+
+
+PHASES = ("0", "1", "2", "3", "3b", "3c", "3d", "3e", "3f", "3g", "4")
 # what phase 4 reads from the phases before it: the kernels' errors (2), the
-# main paths' launch counts (3, 3b, 3d, 3e, 3f), the two-volume train batch
-# (3b) and the MVSEC paths' launches and fixture (3c)
-PHASE_4_NEEDS = ("2", "3", "3b", "3c", "3d", "3e", "3f")
+# main paths' launch counts (3, 3b, 3d, 3e, 3f, 3g), the two-volume train
+# batch (3b) and the MVSEC paths' launches and fixture (3c)
+PHASE_4_NEEDS = ("2", "3", "3b", "3c", "3d", "3e", "3f", "3g")
 
 
 def run(device: torch.device, phases=PHASES) -> dict:
@@ -4522,9 +4783,13 @@ def run(device: torch.device, phases=PHASES) -> dict:
             transformers = phase_transformers(device, tmp)
         if "3f" in phases:
             pwc = phase_pwc(device, tmp)
+        if "3g" in phases:
+            research = phase_research(device, tmp)
         if "4" in phases:
             launches["voxel_scatter"] += zoo["voxel_scatter"] + transformers["voxel_scatter"] + pwc["voxel_scatter"]
             launches["local_corr"] += transformers["local_corr"] + pwc["local_corr"]
+            for k, n in research.items():  # phase 3g's launches of K1-K4
+                launches[k] += n
             kernels, train = phase_times(device, tmp, errs, launches, two_volume, mvsec)
             stamp("the zoo")
             train["zoo"] = times_zoo(device, tmp)

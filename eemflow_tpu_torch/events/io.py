@@ -1,6 +1,6 @@
 """File readers and writers for event and flow data (counterpart of
-``eemflow_tpu/events/io.py:12-82``; reference ``loader/loader_utils.py:26-65``).
-Host-side numpy.
+``eemflow_tpu/events/io.py:12-127``; reference ``loader/loader_utils.py:26-65``,
+``utils_luo/tools.py:2771-2808``).  Host-side numpy.
 
 MVSEC's per-frame event tables are HDF5 files with a group ``myDataset`` of
 float64 datasets ``ts``, ``x``, ``y``, ``p``, as the offline encoder writes
@@ -12,6 +12,8 @@ and pytables are both installed, and neither machine has pytables.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 
@@ -72,3 +74,41 @@ def write_events_h5(events: np.ndarray, event_path: str) -> None:
 def read_flow_npy(path: str) -> np.ndarray:
     """GT flow .npy as produced by the MVSEC encoder ([2, H, W] or [H, W, 2])."""
     return np.load(path)
+
+
+def read_pfm(path: str) -> np.ndarray:
+    """PFM reader (reference ``readPFM``): 'PF' 3 channels, 'Pf' 1; a negative
+    scale means little-endian; rows are stored bottom-up (flipped here).
+    FlyingThings3D's flow files are 'PF' with the third channel unused."""
+    with open(path, "rb") as f:
+        header = f.readline().rstrip()
+        if header not in (b"PF", b"Pf"):
+            raise ValueError(f"Not a PFM file: {path}")
+        dims = re.match(rb"^(\d+)\s(\d+)\s*$", f.readline())
+        if not dims:
+            raise ValueError(f"Malformed PFM header: {path}")
+        width, height = map(int, dims.groups())
+        scale = float(f.readline().rstrip())
+        data = np.fromfile(f, ("<" if scale < 0 else ">") + "f")
+    shape = (height, width, 3) if header == b"PF" else (height, width)
+    return np.flipud(data.reshape(shape))
+
+
+def write_pfm(image: np.ndarray, path: str, scale: float = 1.0) -> None:
+    """Write a 1- or 3-channel float image as little-endian PFM."""
+    image = np.asarray(image, np.float32)
+    color = image.ndim == 3 and image.shape[2] == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{image.shape[1]} {image.shape[0]}\n".encode())
+        f.write(f"{-abs(scale)}\n".encode())
+        np.flipud(image).tofile(f)
+
+
+def read_flow_any(path: str) -> np.ndarray:
+    """Flow by extension: ``.pfm`` (FlyingThings3D; the third channel
+    dropped, RAFT's ``read_gen``), else Middlebury ``.flo``."""
+    if path.endswith(".pfm"):
+        flow = read_pfm(path).astype(np.float32)
+        return flow if flow.ndim == 2 else np.ascontiguousarray(flow[:, :, :2])
+    return read_flo(path)

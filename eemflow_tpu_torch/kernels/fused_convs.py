@@ -441,7 +441,7 @@ def pack_chain(weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor], 
     device = torch.device(device)
     launches = []
     for lo, hi, plan in plan_chain(spec, pool, bf16):
-        ws = [pack_conv(weights[j].to(device), plan, j - lo, bf16) for j in range(lo, hi)]
+        ws = [pack_conv(weights[j].to(device, torch.float32), plan, j - lo, bf16) for j in range(lo, hi)]
         bs = [F.pad(biases[j].detach().to(device, torch.float32), (0, plan["convs"][j - lo]["n8"] * 8
                                                                     - biases[j].shape[0])).contiguous()
               for j in range(lo, hi)]
@@ -615,20 +615,24 @@ def fused_convs(
     groups: Optional[Sequence[int]] = None,
     shuffle: Optional[Sequence[int]] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """x [B, C, H, W] float32, any strides; OIHW weights ([Cout, Cin/g, 3,
-    3] for a conv of ``groups`` g); ``shuffle[j]`` > 1 shuffles conv j's
-    output channels by that many groups; ``packed`` from ``pack_chain``
-    (made here when None).  Returns NCHW (full or None, pooled or None)."""
+    """x [B, C, H, W] float32 (bf16 with ``compute_dtype`` bf16: the JAX
+    kernel reads its operands in float32, and bf16 values stay exact in the
+    bf16 route), any strides; OIHW weights ([Cout, Cin/g, 3, 3] for a conv
+    of ``groups`` g); ``shuffle[j]`` > 1 shuffles conv j's output channels by
+    that many groups; ``packed`` from ``pack_chain`` (made here when None).
+    Returns NCHW float32 (full or None, pooled or None)."""
     if x.device.type == "cpu":
         return plain(x, weights, biases, pool, compute_dtype, emit_full, relus, concat, groups, shuffle)
     if x.device.type != "cuda":
         raise ValueError(f"fused_convs_pool: unsupported device {x.device}")
     refuse_grad("fused_convs_pool", x, *weights, *biases)
-    if x.dtype != torch.float32:
-        raise ValueError("fused_convs_pool: float32 input only")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_convs_pool: compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     bf16 = compute_dtype == torch.bfloat16
+    if x.dtype == torch.bfloat16 and bf16:
+        x = x.float()
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_convs_pool: float32 input (bf16 in the bf16 route) only, got {x.dtype}")
     if packed is None:
         relus, concat, groups, shuffle, _ = check_args(tuple(x.shape), weights, biases, pool, emit_full, relus,
                                                        concat, groups, shuffle)

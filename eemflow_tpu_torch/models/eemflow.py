@@ -1,5 +1,5 @@
 """EEMFlow — the paper's efficient meshflow/optical-flow network (counterpart
-of ``eemflow_tpu/models/eemflow.py:1-175, 372-437``).
+of ``eemflow_tpu/models/eemflow.py``).
 
 Architecture (reference ``model/EEMFlow/EEMFlow.py:71-183``): a 3-stage
 stride-2 conv pyramid (bins→16→32→64, LeakyReLU 0.1); average pooling of
@@ -37,6 +37,21 @@ the model and dropped when it is moved: K3's chains in a ``PackCache``,
 repacked when a parameter they were made from changes in place (its
 version counter) or is replaced; K4's in one ``HeadWeights``, which
 repacks itself after an in-place edit.
+
+Two exact reparametrisations of the same parameters (counterpart of
+``eemflow_tpu/models/eemflow.py:90-160, 279-375``): ``s2d_stem`` runs the
+full-resolution stride-2 stem ``pconv1_1`` as space-to-depth (2×2 pixel
+cells into channels) and a 2×2 conv whose kernel is built at call time from
+the 3×3 one, where H and W are even (training too); ``stacked_coarse``
+(eval-only; ``fast_head`` wins over it) runs the three rconvs as one
+``groups=3`` conv and the three decoders as grouped convs over their
+stacked channels with each decoder's channel shuffle, the weights
+concatenated once from the standard parameters (a ``PackCache`` entry),
+the three correlations still one K2 launch.  Neither is a ``--fast`` mode
+(``models/registry.FAST_EVAL_KWARGS``).  Under bf16 parameters and inputs
+(``time_eval --bf16``) the fused pyramid runs K3's bf16 route and its
+stride-2 convs in the type of their input, as the JAX ``_fast_pyramid``
+casts its kernels to it; K4 casts the levels to float32 (``ops.coarse_head``).
 """
 
 from __future__ import annotations
@@ -47,7 +62,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from eemflow_tpu_torch.kernels import COMPUTE_DTYPES
+from eemflow_tpu_torch.kernels import COMPUTE_DTYPES, refuse_grad
 from eemflow_tpu_torch.kernels.fused_convs import fused_convs, pack_chain
 from eemflow_tpu_torch.models.layers import ConvRelu, channel_shuffle, conv2d
 from eemflow_tpu_torch.ops.coarse_head import IMPLS, HeadWeights, coarse_head
@@ -111,13 +126,47 @@ class Decoder(nn.Module):
         return self.conv7(self.conv6(self.conv5(x)))
 
 
+def s2d_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """A 3×3 stride-2 conv with padding 1 on NCHW ``x`` (H and W even) as
+    space-to-depth and a 2×2 conv (the JAX ``_S2DConv``): each 2×2 cell's
+    pixels become 4·C channels, sub-position major, and tap (dy, dx) of the
+    3×3 kernel lands in cell 0, sub-position 1 for an offset of -1, else in
+    cell 1 at sub-position (dy, dx); the cells are padded by one at the top
+    and the left."""
+    B, C, H, W = x.shape
+    xs = x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 3, 5, 1, 2, 4).reshape(B, 4 * C, H // 2, W // 2)
+    w4 = weight.new_zeros((weight.shape[0], 4 * C, 2, 2))
+    for dy in (-1, 0, 1):
+        cy, ry = (0, 1) if dy == -1 else (1, dy)
+        for dx in (-1, 0, 1):
+            cx, rx = (0, 1) if dx == -1 else (1, dx)
+            blk = (ry * 2 + rx) * C
+            w4[:, blk : blk + C, cy, cx] = w4[:, blk : blk + C, cy, cx] + weight[:, :, dy + 1, dx + 1]
+    return F.conv2d(F.pad(xs, (1, 0, 1, 0)), w4.to(x.dtype), bias.to(x.dtype))
+
+
+def _stride2(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A pyramid level's stride-2 conv + LeakyReLU in the input's type (bf16
+    parameters on K3's float32 output read as float32, as the JAX
+    ``_fast_pyramid`` casts its kernels to its input)."""
+    return F.leaky_relu(F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), stride=2, padding=1), 0.1)
+
+
+def _shuffle_stacked(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Each decoder's ``channel_shuffle(·, groups)`` on three decoders'
+    channels stacked in one NCHW tensor."""
+    B, C, H, W = x.shape
+    return x.reshape(B, 3, groups, C // (3 * groups), H, W).transpose(2, 3).reshape(B, C, H, W)
+
+
 class EEMFlow(nn.Module):
     """Flagship model.  ``siamese_stack``: run both event frames through
     the pyramid and pools as one 2B batch (per-frame results identical;
     fewer, larger launches; the JAX package's ``--fast``).  ``fast_pyramid``
     (which wins over ``siamese_stack``) and ``fast_head``: the eval-only
     fused modes of the module docstring, the port's ``--fast``
-    (``models/registry.FAST_EVAL_KWARGS``)."""
+    (``models/registry.FAST_EVAL_KWARGS``).  ``s2d_stem`` and
+    ``stacked_coarse``: the reparametrisations of the module docstring."""
 
     def __init__(
         self,
@@ -132,6 +181,8 @@ class EEMFlow(nn.Module):
         fast_pyramid_dtype: str = "float32",
         fast_head: bool = False,
         fast_head_impl: str = "kernel",
+        s2d_stem: bool = False,
+        stacked_coarse: bool = False,
     ):
         super().__init__()
         if fast_pyramid_dtype not in COMPUTE_DTYPES:
@@ -148,6 +199,8 @@ class EEMFlow(nn.Module):
         self.fast_pyramid_dtype = fast_pyramid_dtype
         self.fast_head = fast_head
         self.fast_head_impl = fast_head_impl
+        self.s2d_stem = s2d_stem
+        self.stacked_coarse = stacked_coarse
         # packed weights of the fused modes, following the parameters
         self._fast_cache = PackCache()
 
@@ -173,10 +226,18 @@ class EEMFlow(nn.Module):
     def pyramid(self, x: torch.Tensor):
         """Shared 3-stage stride-2 pyramid (reference ``EEMFlow.py:75-82``),
         each level average-pooled to the coarse grid."""
-        f1 = self.pconv1_2(self.pconv1_1(x))
+        f1 = self.pconv1_2(self._stem(x))
         f2 = self.pconv2_3(self.pconv2_2(self.pconv2_1(f1)))
         f3 = self.pconv3_3(self.pconv3_2(self.pconv3_1(f2)))
         return tuple(F.avg_pool2d(f, k) for f, k in zip((f1, f2, f3), POOLS))
+
+    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+        """``pconv1_1``: the 3×3 stride-2 conv, or with ``s2d_stem`` (H and
+        W even) its space-to-depth form; the conv runs in the input's type."""
+        conv = self.pconv1_1[0]
+        if self.s2d_stem and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            return F.leaky_relu(s2d_conv(x, conv.weight, conv.bias), 0.1)
+        return _stride2(x, conv)
 
     def _apply(self, *args, **kwargs):
         self._fast_cache.clear()
@@ -187,7 +248,8 @@ class EEMFlow(nn.Module):
         convs + pool as one K3 call, reading the same parameters as
         ``pyramid``.  Only the pooled grids come out: the last level's full
         output feeds nothing."""
-        dtype = COMPUTE_DTYPES[self.fast_pyramid_dtype]
+        # bf16 operands take K3's bf16 route (the JAX kernel reads them into float32)
+        dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else COMPUTE_DTYPES[self.fast_pyramid_dtype]
         chains = [
             ([getattr(self, n)[0].weight for n in names], [getattr(self, n)[0].bias for n in names])
             for names in LEVEL_CHAINS
@@ -204,7 +266,7 @@ class EEMFlow(nn.Module):
         f = x
         for lvl, (stem, pool) in enumerate(zip((self.pconv1_1, self.pconv2_1, self.pconv3_1), POOLS)):
             f, p = fused_convs(
-                stem(f), *chains[lvl], pool=pool, compute_dtype=dtype,
+                _stride2(f, stem[0]), *chains[lvl], pool=pool, compute_dtype=dtype,
                 emit_full=lvl < len(POOLS) - 1, packed=packs[lvl],
             )
             pooled.append(p)
@@ -226,6 +288,51 @@ class EEMFlow(nn.Module):
             [(nhwc(a), nhwc(b)) for a, b in zip(p1, p2)], self.max_displacement, self.corr_indices
         )
         return [cv.permute(0, 3, 1, 2) for cv in cvs]
+
+    def _stacked_weights(self):
+        """The coarse stage's weights for ``stacked_coarse``: the rconvs'
+        zero-padded to the widest level's input channels and concatenated
+        along the output channels, each decoder conv's likewise; packed once
+        while the parameters keep their stamp."""
+        decs = (self.decoder_1, self.decoder_2, self.decoder_3)
+        triples = {"r": [r[0] for r in (self.rconv_1, self.rconv_2, self.rconv_3)]}
+        triples.update({i: [getattr(d, f"conv{i}")[0] if i < 7 else d.conv7 for d in decs] for i in range(1, 8)})
+        cmax = max(c.weight.shape[1] for c in triples["r"])
+        widen = lambda k, w: F.pad(w, (0, 0, 0, 0, 0, cmax - w.shape[1])) if k == "r" else w
+
+        def make():
+            with torch.inference_mode(False), torch.no_grad():
+                return {k: (torch.cat([widen(k, c.weight) for c in cs]), torch.cat([c.bias for c in cs]))
+                        for k, cs in triples.items()}
+
+        params = [t for cs in triples.values() for c in cs for t in (c.weight, c.bias)]
+        return self._fast_cache.get("stacked", params, make)
+
+    def _stacked_coarse(self, p1, p2) -> torch.Tensor:
+        """The coarse stage with each triple of per-level convs as one grouped
+        conv over the levels' stacked channels (all three pooled grids share
+        one shape): rconvs ``groups=3`` on the zero-padded levels, decoder
+        convs 1, 5, 6, 7 ``groups=3``, convs 2-4 ``groups=3·g`` with each
+        decoder's shuffle; the correlations one ``_corrs`` call.  NCHW in,
+        the pre-upsample flow [B, h, w, 2] out."""
+        refuse_grad("stacked_coarse", *self.parameters())
+        w = self._stacked_weights()
+        g = self.groups
+        lrelu = lambda t: F.leaky_relu(t, 0.1)
+        cmax = w["r"][0].shape[1]
+        xr = torch.cat([F.pad(a, (0, 0, 0, 0, 0, cmax - a.shape[1])) for a in p1], dim=1)
+        r = lrelu(F.conv2d(xr, *w["r"], padding=1, groups=3))
+        cvs = self._corrs(p1, p2)
+        x = torch.cat([t for lvl in range(3) for t in (cvs[lvl], r[:, 16 * lvl : 16 * (lvl + 1)])], dim=1)
+        x = lrelu(F.conv2d(x, *w[1], padding=1, groups=3))
+        for i in (2, 3, 4):
+            x = lrelu(F.conv2d(x, *w[i], padding=1, groups=3 * g))
+            if g > 1:
+                x = _shuffle_stacked(x, g)
+        for i in (5, 6):
+            x = lrelu(F.conv2d(x, *w[i], padding=1, groups=3))
+        out = self.out_conv(F.conv2d(x, *w[7], padding=1, groups=3))
+        return out.permute(0, 2, 3, 1)
 
     def forward(self, events1: torch.Tensor, events2: torch.Tensor, train: bool = False):
         B, H, W, _ = events1.shape
@@ -254,6 +361,9 @@ class EEMFlow(nn.Module):
                 self.corr_indices, self.max_displacement, impl=self.fast_head_impl,
             )
             return (events1, events2), [upsample_flow_to(out, out_size)]
+
+        if self.stacked_coarse and not train:
+            return (events1, events2), [upsample_flow_to(self._stacked_coarse(p1, p2), out_size)]
 
         rconvs = (self.rconv_1, self.rconv_2, self.rconv_3)
         decoders = (self.decoder_1, self.decoder_2, self.decoder_3)

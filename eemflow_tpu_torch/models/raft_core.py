@@ -54,7 +54,7 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked.add_(1)
             stats = (None, None)
         else:
-            stats = (self.running_mean, self.running_var)
+            stats = (self.running_mean.float(), self.running_var.float())  # bf16 after a cast of the model
         y = F.batch_norm(x32, *stats, self.weight.float(), self.bias.float(), self.training, 0.0, self.eps)
         return y.to(x.dtype)
 

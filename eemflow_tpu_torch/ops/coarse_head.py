@@ -207,9 +207,11 @@ def coarse_head(
     impl: str = "kernel",
 ) -> torch.Tensor:
     """Fused EEMFlow coarse head.  f1_levels/f2_levels: three pooled NHWC
-    maps (same h, w; C = 16/32/64).  params: the model's parameters by
-    state-dict name, or a ``HeadWeights``.  Returns the pre-upsample flow
-    [B, h, w, 2], float32."""
+    maps (same h, w; C = 16/32/64), cast to float32 here as the JAX kernel
+    casts them (bf16 levels under ``time_eval --bf16``; the packed weights
+    are float32 whatever the parameters' type).  params: the model's
+    parameters by state-dict name, or a ``HeadWeights``.  Returns the
+    pre-upsample flow [B, h, w, 2], float32."""
     if impl not in IMPLS:
         raise ValueError(f"coarse_head: impl must be one of {IMPLS}, got {impl!r}")
     hw = params if isinstance(params, HeadWeights) else HeadWeights(params, groups)
@@ -217,6 +219,8 @@ def coarse_head(
         raise ValueError(f"coarse_head: weights packed for groups={hw.groups}, called with {groups}")
     refuse_grad("coarse_head", *hw.params.values())
     indices = tuple(int(i) for i in indices)
+    f1_levels = [f.float() for f in f1_levels]
+    f2_levels = [f.float() for f in f2_levels]
     dev = f1_levels[0].device
     if impl == "plain":
         return coarse_head_plain(f1_levels, f2_levels, *hw.plain(dev), indices, max_displacement)

@@ -1,11 +1,12 @@
 """Input padding to network-friendly sizes (counterpart of
-``eemflow_tpu/ops/pad.py:21-62``).
+``eemflow_tpu/ops/pad.py:21-84``).
 
 ``InputPadder`` replicate-pads H and W up to the next multiple of
 ``eval_pad_rate`` (reference ``utils/image_utils.py:126-145``).  Mode
 ``chairs`` pads the bottom only and splits the width left/right; mode
 ``sintel`` centres both.  EEMFlow uses ``pad_rate=64``, so 720×1280 pads
-to 768×1280 (48 bottom rows).
+to 768×1280 (48 bottom rows).  ``ImagePadder`` zero-pads the top and the
+left of NHWC images to a multiple of ``min_size``.
 """
 
 from __future__ import annotations
@@ -54,3 +55,23 @@ class InputPadder:
         l, r, t, b = self._pad
         ht, wd = x.shape[-3], x.shape[-2]
         return x[..., t : ht - b, l : wd - r, :]
+
+
+class ImagePadder:
+    """Zero-pads top and left to a multiple of ``min_size`` (NHWC); the
+    amounts are fixed by the first image padded."""
+
+    def __init__(self, min_size: int = 64):
+        self.min_size = min_size
+        self.pad_height = None
+        self.pad_width = None
+
+    def pad(self, image: torch.Tensor) -> torch.Tensor:
+        height, width = image.shape[1], image.shape[2]
+        if self.pad_width is None:
+            self.pad_height = (self.min_size - height % self.min_size) % self.min_size
+            self.pad_width = (self.min_size - width % self.min_size) % self.min_size
+        return F.pad(image, (0, 0, self.pad_width, 0, self.pad_height, 0))
+
+    def unpad(self, image: torch.Tensor) -> torch.Tensor:
+        return image[:, self.pad_height :, self.pad_width :, :]

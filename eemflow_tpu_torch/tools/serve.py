@@ -11,7 +11,8 @@ GIL at every op, and a decode thread that holds it between them slows
 that dispatch (``PERF.md`` has the card's numbers).  ``--data_root`` is scanned
 recursively for sample directories holding ``events1.npz`` +
 ``events2.npz`` (the HREM test layout); ``--out_dir`` receives
-``<relpath with os.sep → _>.flo``.
+``<relpath with os.sep → _>.flo``, and with ``--viz`` its colour-wheel
+picture (``viz.flow_viz.flow_to_image``) as ``.png`` beside it.
 
 Modes:
   * pair (default): K1 twice a sample (one call a frame of the batch), then
@@ -48,13 +49,13 @@ frame, the device's name); with ``--profile`` the device's busy share of
 the timed window (the union of its kernels' and copies' intervals in a
 ``torch.profiler`` trace); returns the report's numbers.  Without
 ``--checkpoint`` the weights are a seeded random init.  Runs on the card
-unless ``--device cpu``; TF32 off.  ``--viz`` and ``--shard`` are not
-ported yet (``ROADMAP.md``).
+unless ``--device cpu``; TF32 off.  ``--shard`` is not ported yet
+(``ROADMAP.md``).
 
 Usage:
   python -m eemflow_tpu_torch.tools.serve --data_root <dir> --checkpoint ckpt.pth.tar \\
       [-model <any registered model>] [--stream [--chunk K]] [--batch B] \\
-      [--host_voxelize] [--fast] [--bf16] [--loops N] [--warmup N] [--out_dir <dir>] \\
+      [--host_voxelize] [--fast] [--bf16] [--loops N] [--warmup N] [--out_dir <dir> [--viz]] \\
       [--profile <dir>] [--device cpu]
 """
 
@@ -76,6 +77,8 @@ from eemflow_tpu_torch.events.io import write_flo
 from eemflow_tpu_torch.events.voxel import voxelize_batch_nhwc
 from eemflow_tpu_torch.models.registry import ALIASES, MODEL_REGISTRY, fast_eval_kwargs, get_eval_model
 from eemflow_tpu_torch.native import HostVoxelizer, decode_pack_npz, native_status
+from eemflow_tpu_torch.viz.flow_viz import flow_to_image
+from eemflow_tpu_torch.viz.png import write_png
 
 PREFETCH_DEPTH = 2  # --host_voxelize: batches its thread runs ahead
 # the fused modes take float32 volumes (kernels K3 and K4)
@@ -112,6 +115,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true",
                    help="bf16 parameters and volumes (not checkpoint-parity)")
     p.add_argument("--out_dir", default=None, help="write <sample>.flo final flows here")
+    p.add_argument("--viz", action="store_true",
+                   help="also write each flow's colour-wheel picture as <sample>.png (needs --out_dir)")
     p.add_argument("--stream", action="store_true",
                    help="treat the sample list as consecutive dt1 stream(s): voxelize only each "
                    "sample's events2 and reuse the previous grid (sample i's events2 must be "
@@ -307,6 +312,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             for s, fl in zip(group, flow):
                 name = os.path.relpath(s, args.data_root).replace(os.sep, "_")
                 write_flo(fl, os.path.join(args.out_dir, name + ".flo"))
+                if args.viz:
+                    write_png(os.path.join(args.out_dir, name + ".png"), flow_to_image(fl)[:, :, ::-1])
 
     if args.stream:
         batches, dispatch = stream_batches(args.chunk), dispatch_stream

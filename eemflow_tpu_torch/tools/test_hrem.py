@@ -11,11 +11,17 @@ model's input channels are the data's voxel bins.  The
 checkpoint goes through ``compat.torch_loader.load_model_checkpoint``: a
 released ``.pth.tar`` or the port's own ``epoch_N.pt``, EEMFlow+'s dead
 keys dropped, the correlation ``index`` buffer the model's own.
+``--mode`` runs a research mode of ``eval.runner.ResearchTester`` on the
+first available sequence (``save_flow``: ``.flo`` and HSV pictures;
+``low_epe``; ``warp``; ``density``: AEE by event density;
+``dsec_submission``: 16-bit PNGs), its files under
+``<save_dir>/<model>_<int>/<mode>/``.
 
 Usage:
   python -m eemflow_tpu_torch.tools.test_hrem -model eemflow -int dt1 \
       --data_root dataset/HREM --checkpoint EEMFlow_HREM_dt1.pth.tar \
       [--device_voxelize] [--eval_batch 2] [--fast_head] [--fast_pyramid] [--fast] [--device cpu]
+      [--mode save_flow|low_epe|warp|density|dsec_submission]
   python -m eemflow_tpu_torch.tools.test_hrem -model eemflow_plus -int dt1 \
       --checkpoint EEMFlow+_HREM_dt1.pth.tar [--fast_pyramid --fast_decoders --fast_sgu]
   python -m eemflow_tpu_torch.tools.test_hrem -model eraft -int dt1 \
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -38,13 +44,15 @@ from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
 from eemflow_tpu_torch.data.device_input import make_device_preprocess
 from eemflow_tpu_torch.data.hrem import HREM_SEQUENCES, HREMEventFlow
 from eemflow_tpu_torch.device import resolve_device
-from eemflow_tpu_torch.eval.runner import Tester
+from eemflow_tpu_torch.eval.runner import ResearchTester
 from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 from eemflow_tpu_torch.utils.config import load_config, model_kwargs_from_config
 
 
 # the fused eval modes a flag of the same name turns on
 FUSED_FLAGS = ("fast_head", "fast_pyramid", "fast_decoders", "fast_sgu")
+# the research modes of the HREM CLI (the MVSEC CLI adds warp_loss and multi_key)
+HREM_MODES = ResearchTester.MODES[:5]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,6 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_samples", type=int, default=None,
                    help="at most this many samples per sequence")
     p.add_argument("--save_csv", action="store_true")
+    p.add_argument("--mode", default="standard", choices=("standard",) + HREM_MODES,
+                   help="'standard' = the protocol eval; the others are the research modes "
+                   "(reference test_mvsec.py), on the first available sequence")
     p.add_argument("--config", default=None,
                    help="optional config JSON carrying model hyperparameters")
     p.add_argument("--device_voxelize", action="store_true",
@@ -87,7 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
+def main(argv: Optional[Sequence[str]] = None):
+    """Runs the eval; returns the per-sequence results (``--mode standard``)
+    or what the research mode returns."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     # parity mode: full float32 convolutions and matmuls (cuDNN would
@@ -118,13 +131,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         if args.device_voxelize else None
     )
     save_path = os.path.join(args.save_dir, f"{args.model}_{args.event_interval}")
-    tester = Tester(model, device, save_path=save_path, save_csv=args.save_csv,
-                    preprocess=preprocess)
-    seqs = [s for s in HREM_SEQUENCES if s in dataset.nori_list]
-    return tester.test_multi_sequence(
-        dataset, seqs or HREM_SEQUENCES, stride=args.stride, max_samples=args.max_samples,
-        batch_size=args.eval_batch,
-    )
+    tester = ResearchTester(model, device, save_path=save_path, save_csv=args.save_csv,
+                            preprocess=preprocess)
+    seqs = [s for s in HREM_SEQUENCES if s in dataset.nori_list] or list(HREM_SEQUENCES)
+    if args.mode == "standard":
+        return tester.test_multi_sequence(dataset, seqs, stride=args.stride, max_samples=args.max_samples,
+                                          batch_size=args.eval_batch)
+    dataset.change_test_sequence(seqs[0])
+    return tester.run_mode(args.mode, dataset, os.path.join(save_path, args.mode), stride=args.stride,
+                           max_samples=args.max_samples)
 
 
 if __name__ == "__main__":

@@ -15,14 +15,19 @@ and K4).  ``--frames START END`` replaces the sequence's valid frame range
 for this run (subset evals, synthetic fixtures).  The checkpoint goes
 through ``compat.torch_loader.load_model_checkpoint`` as in ``test_hrem``.
 
-Not ported yet: ``--mode`` other than ``standard`` (the research testers,
-``ROADMAP.md`` section 1 item 4), ``--shard_eval`` (item 6), and the JAX
-CLI's ``--seg_bucket`` (the raw-segment family, item 7).
+``--mode`` runs a research mode of ``eval.runner.ResearchTester``
+(``save_flow``, ``low_epe``, ``warp``, ``density``, ``dsec_submission``,
+``warp_loss``: the probe-point flow error, ``multi_key``: the key-map
+density CSV), its files under ``<save_dir>/<model>_<int>_<sequence>/<mode>/``.
+
+Not ported yet: ``--shard_eval`` (``ROADMAP.md`` section 1 item 6) and the
+JAX CLI's ``--seg_bucket`` (the raw-segment family, item 7).
 
 Usage:
   python -m eemflow_tpu_torch.tools.test_mvsec -model eemflow -int dt1 \
       --sequence indoor_flying1 --data_root dataset/MVSEC --checkpoint <ckpt> \
       --eval_type dense --stride 30 [--device_voxelize] [--fast] [--eval_batch 2] [--device cpu]
+      [--mode save_flow|low_epe|warp|density|dsec_submission|warp_loss|multi_key]
   python -m eemflow_tpu_torch.tools.test_mvsec -model kpaflow -int dt1 --checkpoint kpaflow.pth.tar \
       [--device_voxelize]   (also -model gma, skflow, gmflow, flowformer, irrpwc, pwcnet_irr_occ_bi, ...)
 """
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -39,13 +44,11 @@ from eemflow_tpu_torch.compat.torch_loader import load_model_checkpoint
 from eemflow_tpu_torch.data.device_input import make_device_preprocess
 from eemflow_tpu_torch.data.mvsec import VAL_CROP, VALID_TIME_INDEX, MvsecEventFlow, MvsecEventFlow_dt4
 from eemflow_tpu_torch.device import resolve_device
-from eemflow_tpu_torch.eval.runner import Tester
+from eemflow_tpu_torch.eval.runner import ResearchTester
 from eemflow_tpu_torch.models.registry import fast_eval_kwargs, get_eval_model
 from eemflow_tpu_torch.tools.test_hrem import FUSED_FLAGS
 from eemflow_tpu_torch.utils.config import load_config, model_kwargs_from_config
 from eemflow_tpu_torch.utils.logger import Logger
-
-RESEARCH_MODES = ("save_flow", "low_epe", "warp", "density", "dsec_submission", "warp_loss", "multi_key")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stride", type=int, default=30)
     p.add_argument("--save_dir", default="runs/mvsec_eval")
     p.add_argument("--save_csv", action="store_true")
-    p.add_argument("--mode", default="standard", choices=("standard",) + RESEARCH_MODES,
-                   help="'standard' = the protocol eval; the research modes are not ported yet")
+    p.add_argument("--mode", default="standard", choices=("standard",) + ResearchTester.MODES,
+                   help="'standard' = the protocol eval; the others are the research modes (reference "
+                   "test_mvsec.py)")
     p.add_argument("--max_samples", type=int, default=None)
     p.add_argument("--device_voxelize", action="store_true",
                    help="voxelize raw events on the device (kernel K1; the centre crop included)")
@@ -91,11 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
+def main(argv: Optional[Sequence[str]] = None):
+    """Runs the eval; returns the sequence's results (``--mode standard``) or
+    what the research mode returns."""
     args = build_parser().parse_args(argv)
-    if args.mode != "standard":
-        raise SystemExit(f"--mode {args.mode}: the research testers are not ported yet "
-                         "(ROADMAP.md section 1 item 4)")
     if args.shard_eval:
         raise SystemExit("--shard_eval: multi-device eval is not ported yet (ROADMAP.md section 1 item 6)")
     device = resolve_device(args.device)
@@ -131,8 +134,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     )
     save_path = os.path.join(args.save_dir, f"{args.model}_{args.event_interval}_{args.sequence}")
     logger = Logger(save_path)
-    tester = Tester(model, device, save_path=save_path, save_csv=args.save_csv, preprocess=preprocess,
-                    is_car="outdoor" in args.sequence)
+    tester = ResearchTester(model, device, save_path=save_path, save_csv=args.save_csv, preprocess=preprocess,
+                            is_car="outdoor" in args.sequence)
+    if args.mode != "standard":
+        return tester.run_mode(args.mode, dataset, os.path.join(save_path, args.mode), stride=args.stride,
+                               max_samples=args.max_samples)
     res = tester.test_sequence(dataset, stride=args.stride, max_samples=args.max_samples,
                                batch_size=args.eval_batch)
     logger.write_line(

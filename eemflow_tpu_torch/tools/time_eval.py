@@ -8,12 +8,15 @@ On the card the forward is timed with CUDA events over ``--reps``
 back-to-back calls after a warm-up; on the CPU (``--device cpu``) with the
 host clock, and the result names the CPU.  The weights are random
 (timing does not depend on them) unless ``--checkpoint`` names a release
-or an ``epoch_N.pt`` (``compat.torch_loader.load_model_checkpoint``).  Prints one line with ms per image and
-images per second beside the device's name, and returns them.
+or an ``epoch_N.pt`` (``compat.torch_loader.load_model_checkpoint``).  ``--bf16`` casts the
+parameters and the inputs to bf16 (the JAX tool's ``cast_floating``; the kernels on the path take
+bf16 operands: K2 its bf16 route, K3 its bf16 route, K4 casts to float32 at entry, and K5 raises)
+and reports the flow's relative L2 distance to the float32 forward on the same inputs.  Prints one
+line with ms per image and images per second beside the device's name, and returns them.
 
 Usage:
   python -m eemflow_tpu_torch.tools.time_eval --size 720 1280 -bs 1 \\
-      [--fast_head [--fast_head_impl plain]] [--fast_pyramid | --fast_pyramid_bf16] [--fast]
+      [--fast_head [--fast_head_impl plain]] [--fast_pyramid | --fast_pyramid_bf16] [--fast] [--bf16]
   python -m eemflow_tpu_torch.tools.time_eval -model eemflow_plus --size 720 1280 -bs 1 \\
       [--fast_pyramid --fast_decoders --fast_sgu [--fast_pyramid_bf16]]
   python -m eemflow_tpu_torch.tools.time_eval -model eraft --size 720 1280 -bs 1 \\
@@ -111,6 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--checkpoint", default=None,
                    help="optional .pth/.pth.tar release or epoch_N.pt (default: random weights)")
+    p.add_argument("--bf16", action="store_true",
+                   help="cast the parameters and the inputs to bf16 (not checkpoint-parity); reports the "
+                   "flow's relative L2 distance to float32")
     add_mode_flags(p)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
@@ -138,6 +144,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         with torch.inference_mode():
             return model(x1, x2)[1][-1]
 
+    rel_l2 = None
+    if args.bf16:
+        flow32 = forward().float()
+        model.to(torch.bfloat16)
+        x1, x2 = x1.to(torch.bfloat16), x2.to(torch.bfloat16)
+        rel_l2 = float(torch.linalg.vector_norm(forward().float() - flow32) / torch.linalg.vector_norm(flow32))
     for _ in range(3):
         forward()
     if device.type == "cuda":
@@ -159,13 +171,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         name = "cpu"
     per_img = ms / args.batch_size
     modes = ",".join(f"{k}={v}" for k, v in sorted(extra.items())) or "standard"
+    bf16 = "" if rel_l2 is None else f" bf16 (flow {rel_l2:.3e} relative L2 from float32)"
     print(
-        f"{args.model} @ {h}x{w} b={args.batch_size} ({modes}): {per_img:.3f} ms/img, "
+        f"{args.model} @ {h}x{w} b={args.batch_size} ({modes}){bf16}: {per_img:.3f} ms/img, "
         f"{1e3 / per_img:.1f} fps ({name})",
         flush=True,
     )
-    return {"device": name, "model": args.model, "modes": extra, "ms_per_forward": ms, "ms_per_img": per_img,
-            "fps": 1e3 / per_img}
+    return {"device": name, "model": args.model, "modes": extra, "bf16": args.bf16, "rel_l2": rel_l2,
+            "ms_per_forward": ms, "ms_per_img": per_img, "fps": 1e3 / per_img}
 
 
 if __name__ == "__main__":

@@ -16,14 +16,16 @@ other models predict at full resolution only, so they need
 one refuses before the first step).  ``--device_voxelize`` reads raw
 events and voxelizes them on the device (kernel K1, once a frame); mixed
 precision (``--bf16`` or the config's ``mixed_precision``) runs the
-forward on bf16 copies of the float32 parameters (``train.trainer``).  The
-JAX CLI's ``--viz`` comes with the port's ``viz`` package.
+forward on bf16 copies of the float32 parameters (``train.trainer``).
+``--viz`` writes sample 0's ground truth, estimate and input maps as PNGs
+to ``<run>/viz/`` every 100 steps (reference
+``train_mvsec.py:263-276``; ``viz.visualizer.make_train_viz_hook``).
 
 Usage:
   python -m eemflow_tpu_torch.tools.train_hrem -model eemflow -int dt1 \
       --data_root dataset/HREM --config configs/hrem_meshflow.json -bs 6 \
       --lr 1e-5 --train_iters 6000000 --val_iters 10000 [-se N] \
-      [--device_voxelize] [--bf16] [--device cpu]
+      [--device_voxelize] [--bf16] [--viz] [--device cpu]
   python -m eemflow_tpu_torch.tools.train_hrem -model eemflow_plus \
       --config configs/hrem_eemflow_plus.json --full_res_flow [...]
   python -m eemflow_tpu_torch.tools.train_hrem -model eraft --full_res_flow [...]
@@ -56,6 +58,7 @@ from eemflow_tpu_torch.utils.config import (
     snapshot_config,
 )
 from eemflow_tpu_torch.utils.logger import Logger
+from eemflow_tpu_torch.viz.visualizer import make_train_viz_hook
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,6 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="event bucket size for --device_voxelize")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mixed-precision training (float32 master parameters)")
+    p.add_argument("--viz", action="store_true",
+                   help="write flow and input-map pictures every 100 steps (reference "
+                   "train_mvsec.py:263-276)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     return p
 
@@ -161,8 +167,13 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
         logger.write_line(f"resumed from epoch {start_epoch}", True)
 
     mixed_precision = args.bf16 or bool(train_cfg.get("mixed_precision", False))
+    viz_hook = (
+        make_train_viz_hook(os.path.join(save_path, "viz"), model=state.model, family=family, preprocess=preprocess)
+        if args.viz else None
+    )
     trainer = Trainer(gamma=train_cfg.get("gamma", 0.8), family=family, preprocess=preprocess,
-                      mixed_precision=mixed_precision, logger=logger, checkpoint_dir=ckpt_dir)
+                      mixed_precision=mixed_precision, logger=logger, checkpoint_dir=ckpt_dir,
+                      viz_hook=viz_hook)
     n_epochs = args.train_iters // args.val_iters
     on_device = (batch_to_device(b, device) for b in batches)
     for epoch in range(start_epoch, n_epochs):

@@ -152,7 +152,9 @@ class Trainer:
     """Epoch-style loop: ``val_iters`` steps an epoch, a log line every
     ``log_every``, a checkpoint each epoch (reference ``train_iters``,
     ``train_mvsec.py:229-286``).  Metrics accumulate on the device; the
-    host reads them only at log boundaries."""
+    host reads them only at log boundaries.  ``viz_hook(state, batch,
+    step)``, where given, runs after every ``viz_every``-th step of an epoch
+    on that step's batch (``viz.visualizer.make_train_viz_hook``)."""
 
     def __init__(
         self,
@@ -163,10 +165,14 @@ class Trainer:
         logger=None,
         checkpoint_dir: Optional[str] = None,
         log_every: int = 10,
+        viz_hook: Optional[Callable] = None,
+        viz_every: int = 100,
     ):
         self.logger = logger
         self.checkpoint_dir = checkpoint_dir
         self.log_every = log_every
+        self.viz_hook = viz_hook
+        self.viz_every = viz_every
         self.train_step = make_train_step(
             gamma, family=family, preprocess=preprocess, mixed_precision=mixed_precision
         )
@@ -209,6 +215,8 @@ class Trainer:
                         "loss": loss_avg, "aee": epe_avg,
                         "steps_per_sec": iters / dt,
                     })
+            if self.viz_hook is not None and iters % self.viz_every == 0:
+                self.viz_hook(state, batch, iters + start_epoch * val_iters)
             if iters >= val_iters:
                 break
         n = max(iters, 1)

@@ -1,5 +1,6 @@
 """Kernels of the port against their plain twins on the card (EEMFlow+'s
-K3 chains among them), K2's backward, the eval-only kernels' refusal under
+K3 chains among them, K4 on bf16-cast weights), K2's backward, EEMFlow's
+``s2d_stem`` and ``stacked_coarse`` on the card, the eval-only kernels' refusal under
 grad, ERAFT and EEMFlow+ on the card against the CPU, their train steps and
 ERAFT's stacked lookup on the card against the CPU, and the serving CLI on
 the card against the CPU.  Marked ``gpu``: they skip where no CUDA device is
@@ -259,6 +260,59 @@ def test_coarse_head_kernel_matches_twin(cuda, batch, groups):
         ref = coarse_head(f1, f2, hw, groups, INDEX_53, 4, impl="plain")
         torch.cuda.synchronize()
         assert _max_rel_err(got, ref) <= 1e-5
+
+
+def test_coarse_head_kernel_takes_bf16_cast_weights_and_levels(cuda):
+    """``time_eval --bf16``'s K4: bf16-cast parameters and bf16 levels are
+    cast to float32 at entry, as the JAX kernel does, and the flow is
+    float32: against the plain version on the float32 values of the same
+    bf16 numbers."""
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.eemflow import INDEX_53
+    from eemflow_tpu_torch.ops.coarse_head import HeadWeights, coarse_head
+
+    rng = np.random.default_rng(51)
+    params = {k: v.to(torch.bfloat16) for k, v in _head_params(rng, 5, cuda).items()}
+    f1, f2 = ([torch.from_numpy(rng.standard_normal((1, 12, 20, c)).astype(np.float32)).to(cuda, torch.bfloat16)
+               for c in (16, 32, 64)] for _ in range(2))
+    before = launch_counts["coarse_head"]
+    got = coarse_head(f1, f2, HeadWeights(params, 5), 5, INDEX_53, 4)
+    assert launch_counts["coarse_head"] == before + 1 and got.dtype == torch.float32
+    ref = coarse_head([f.float() for f in f1], [f.float() for f in f2],
+                      HeadWeights({k: v.float() for k, v in params.items()}, 5), 5, INDEX_53, 4, impl="plain")
+    torch.cuda.synchronize()
+    assert _max_rel_err(got, ref) <= 1e-5
+
+
+def test_eemflow_options_on_card_match_cpu_and_standard(cuda):
+    """``stacked_coarse`` and ``s2d_stem`` on the card against the CPU and
+    against the standard forward on the card (1e-5·max(1, |flow|)); the
+    stacked coarse stage takes its three correlations in one K2 launch."""
+    import os
+
+    from eemflow_tpu_torch.compat.torch_loader import load_torch_checkpoint, to_state_dict
+    from eemflow_tpu_torch.kernels import launch_counts
+    from eemflow_tpu_torch.models.registry import get_eval_model
+
+    ckpt = os.path.join(os.path.dirname(__file__), "fixtures", "eemflow_hrem_golden.pth.tar")
+    sd = to_state_dict(load_torch_checkpoint(ckpt))
+    rng = np.random.default_rng(52)
+    ev1, ev2 = (torch.from_numpy(rng.standard_normal((2, 192, 256, 5)).astype(np.float32)) for _ in range(2))
+    flows = {}
+    for name, kw in (("standard", {}), ("stacked", {"stacked_coarse": True}), ("s2d", {"s2d_stem": True})):
+        model = get_eval_model("eemflow", **kw)
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            cpu = model(ev1, ev2)[1][-1]
+            model.to(cuda)
+            before = launch_counts["local_corr"]
+            flows[name] = model(ev1.to(cuda), ev2.to(cuda))[1][-1].cpu()
+            assert launch_counts["local_corr"] == before + 1
+        scale = max(1.0, float(cpu.abs().max()))
+        assert float((flows[name] - cpu).abs().max()) <= 1e-5 * scale, name
+    for name in ("stacked", "s2d"):
+        assert float((flows[name] - flows["standard"]).abs().max()) <= 1e-5 * max(
+            1.0, float(flows["standard"].abs().max())), name
 
 
 @pytest.mark.parametrize("cluster", [8, 16])

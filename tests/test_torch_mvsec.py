@@ -448,8 +448,11 @@ def test_cli_device_voxelize_and_batch_match_host(full_root, tmp_path):
 
 def test_cli_refusals_and_frames_override(full_root, tmp_path):
     before = {k: list(v) for k, v in port_mvsec.VALID_TIME_INDEX.items()}
-    with pytest.raises(SystemExit, match="item 4"):
-        _cli(full_root, tmp_path, "--mode", "warp")
+    # a research mode runs (it refused before the research testers were ported)
+    assert mvsec_cli(["-model", "eemflow", "--sequence", "indoor_flying1", "--data_root", full_root, "--checkpoint",
+                      CKPT, "--frames", "3", "5", "--stride", "1", "--save_dir", str(tmp_path), "--device", "cpu",
+                      "--mode", "warp", "--max_samples", "1"]) == 1
+    assert os.path.exists(tmp_path / "eemflow_dt1_indoor_flying1" / "warp" / "000000_ev2_warped.png")
     with pytest.raises(SystemExit, match="item 6"):
         _cli(full_root, tmp_path, "--shard_eval")
     res, _ = _cli(full_root, tmp_path, "--max_samples", "1")

@@ -1,7 +1,9 @@
 """Rules of the PyTorch port that hold without a card: it imports nothing
-of JAX or of the JAX package, nor ``cv2`` or ``pandas`` (not on the
-card's path), and ``h5py`` (which the card's machine lacks) at most inside
-a host-only function, never when a module is imported; its entry points
+of JAX or of the JAX package, nor ``cv2``, ``PIL`` or ``pandas`` (not on the
+card's path: the port writes its pictures with its own PNG code), and
+``h5py`` (which the card's machine lacks) and ``imageio`` (the GIF writer's,
+where it is installed) at most inside a function, never when a module is
+imported; its entry points
 refuse to fall back from
 the card to the CPU, ``chip_smoke.py`` fails where there is no card, and
 the kernel build targets ``sm_90a`` into a git-ignored directory."""
@@ -16,11 +18,12 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "eemflow_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "eemflow_tpu", "cv2", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "eemflow_tpu", "cv2", "PIL", "pandas")
 # packages a port module may import only inside a function (the offline
-# MVSEC encoder reads the raw recordings through h5py), so the import of
-# every module must succeed without them
-BLOCKED_AT_IMPORT = FORBIDDEN + ("h5py",)
+# MVSEC encoder reads the raw recordings through h5py, ``viz.visualizer.
+# create_gif`` writes through imageio), so the import of every module must
+# succeed without them
+BLOCKED_AT_IMPORT = FORBIDDEN + ("h5py", "imageio")
 
 
 def _port_files():
@@ -80,6 +83,8 @@ def test_port_imports_with_jax_blocked():
     modules = [_module_name(p) for p in _port_files()]
     assert "eemflow_tpu_torch.tools.test_mvsec" in modules and "eemflow_tpu_torch.data.mvsec" in modules
     assert {f"eemflow_tpu_torch.models.{m}" for m in ("gma", "skflow", "kpaflow", "gmflow", "flowformer")} <= set(modules)
+    assert {"eemflow_tpu_torch.viz", "eemflow_tpu_torch.viz.flow_viz", "eemflow_tpu_torch.viz.png",
+            "eemflow_tpu_torch.viz.visualizer", "eemflow_tpu_torch.data.dsec"} <= set(modules)
     code = BLOCKER.format(forbidden=BLOCKED_AT_IMPORT, modules=modules)
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
